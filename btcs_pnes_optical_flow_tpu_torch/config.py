@@ -29,6 +29,9 @@ def check_supported(params: FarnebackParams) -> FarnebackParams:
     - ``roi_active_px`` is ignored: every level is computed full-frame,
       which leaves the flow inside the ROI unchanged.
     - ``iter_schedule`` is honoured through ``params.iters_at``.
+    - ``use_initial_flow`` is honoured: ``farneback_flow`` and
+      ``farneback_flow_seq`` start the pyramid from their ``flow0``
+      argument when it is given, as cv2's OPTFLOW_USE_INITIAL_FLOW does.
     """
     if params.warp_precision != "fp32":
         raise ValueError(

@@ -2,6 +2,7 @@
 
 ``cvx`` ↔ OpenCV image ops and cv2.fillPoly, ``farneback`` ↔
 calcOpticalFlowFarneback (plain PyTorch; the CUDA kernels sit behind
-``farneback_cuda``), ``filters`` ↔ scipy.signal sosfiltfilt, ``pca`` ↔
-the reference's sliding-window PCA.
+``farneback_cuda``), ``tvl1`` ↔ DualTVL1 flow (kernels behind
+``tvl1_cuda``), ``filters`` ↔ scipy.signal sosfiltfilt, ``pca`` ↔ the
+reference's sliding-window PCA.
 """

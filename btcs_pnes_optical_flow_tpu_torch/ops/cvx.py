@@ -1,11 +1,12 @@
 """OpenCV-exact image primitives in PyTorch.
 
 Port of ``btcs_pnes_optical_flow_tpu/ops/cvx.py``.  Every stencil is a
-loop over taps on shifted slices and every resize is index/weight
-arithmetic, so no convolution or matrix product (and hence no TF32
-path) is involved.  Taps and coefficient tables are computed on the
-host in float64 and rounded to float32 where they meet the data, as
-the JAX package does.  All functions batch over leading dimensions.
+loop over taps on shifted slices and ``resize_bilinear`` is index/weight
+arithmetic, so no convolution is involved; the one matrix product is
+``resize_bilinear_mm``, which refuses TF32.  Taps and coefficient
+tables are computed on the host in float64 and rounded to float32 where
+they meet the data, as the JAX package does.  All functions batch over
+leading dimensions.
 """
 
 from __future__ import annotations
@@ -120,9 +121,8 @@ def gaussian_blur_reflect101(img: torch.Tensor, ksize: int, sigma: float) -> tor
     return corr1d(x, k, axis=-1)
 
 
-@functools.lru_cache(maxsize=None)
-def resize_axis_coeffs(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """cv2 INTER_LINEAR taps along one axis: (i0, i1, frac float32).
+def _axis_taps(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """cv2 INTER_LINEAR taps along one axis: (i0, i1, frac float64).
 
     Source coordinate s = (d + 0.5)*scale - 0.5 with scale = in/out;
     coordinates below 0 take pixel 0 with weight 0, taps past the end
@@ -136,6 +136,13 @@ def resize_axis_coeffs(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray, n
     frac = np.where(i0 < 0, 0.0, frac)
     i0 = np.clip(i0, 0, n_in - 1)
     i1 = np.clip(i0 + 1, 0, n_in - 1)
+    return i0, i1, frac
+
+
+@functools.lru_cache(maxsize=None)
+def resize_axis_coeffs(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(i0, i1, frac float32) of ``_axis_taps``, as resize_bilinear applies them."""
+    i0, i1, frac = _axis_taps(n_in, n_out)
     return i0, i1, frac.astype(np.float32)
 
 
@@ -156,6 +163,48 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     left = rows.index_select(-1, torch.as_tensor(x0, device=dev))
     right = rows.index_select(-1, torch.as_tensor(x1, device=dev))
     return left * (1.0 - fx_t) + right * fx_t
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_axis_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """Dense (n_out, n_in) float32 interpolation matrix of ``_axis_taps``;
+    1 - frac is taken in float64 before the rounding, as the JAX package
+    does."""
+    i0, i1, frac = _axis_taps(n_in, n_out)
+    d = np.arange(n_out)
+    w = np.zeros((n_out, n_in), np.float32)
+    np.add.at(w, (d, i0), (1.0 - frac).astype(np.float32))
+    np.add.at(w, (d, i1), frac.astype(np.float32))
+    return w
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_matrix(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_resize_axis_matrix(n_in, n_out), device=device)
+
+
+def resize_bilinear_mm(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """resize_bilinear as two dense float32 matrix products,
+    out = Wy @ img @ Wxᵀ over the last two dims (identity when sizes match).
+
+    Port of the JAX package's ``cvx.resize_bilinear_mm``, which the TV-L1
+    pyramid uses.  Each output reduces to w0·a + w1·b plus exact zeros.
+    The JAX package pins full float32 precision, so this raises on a CUDA
+    tensor while TF32 matmuls are allowed.  A NaN pixel poisons its whole
+    output row or column (0·NaN): use it on finite planes only.
+    """
+    in_h, in_w = img.shape[-2], img.shape[-1]
+    if (in_h, in_w) == (out_h, out_w):
+        return img
+    if img.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("resize_bilinear_mm needs full float32 matmuls; "
+                           "set torch.backends.cuda.matmul.allow_tf32 = False")
+    out = img
+    if in_h != out_h:
+        out = torch.matmul(_resize_matrix(in_h, out_h, img.device), out)
+    if in_w != out_w:
+        out = torch.matmul(out, _resize_matrix(in_w, out_w, img.device).T)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ engine's layout so the two packages compare like with like.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -310,11 +311,12 @@ def _kernel_steps(kernels: bool):
 
 
 def _level_loop(polys_of_level, n: int, h: int, w: int, params: FarnebackParams,
-                kernels: bool, device) -> torch.Tensor:
+                flow0, kernels: bool, device) -> torch.Tensor:
     """Coarse-to-fine pyramid loop, channel-first.
 
     polys_of_level(k, poly) -> (r0, r1): the (n, 5, hk, wk) expansions
-    that level k's pairs warp from and to.  Returns flow (n, H, W, 2).
+    that level k's pairs warp from and to.  flow0: (n, H, W, 2) or None.
+    Returns flow (n, H, W, 2).
     """
     check_supported(params)
     poly, um, uf = _kernel_steps(kernels)
@@ -323,7 +325,13 @@ def _level_loop(polys_of_level, n: int, h: int, w: int, params: FarnebackParams,
         hk, wk = params.level_size(h, w, k)
         r0, r1 = polys_of_level(k, poly)
         if flow is None:
-            flow = torch.zeros((n, 2, hk, wk), dtype=torch.float32, device=device)
+            if params.use_initial_flow and flow0 is not None:
+                # OPTFLOW_USE_INITIAL_FLOW: the given flow, resized to the
+                # coarsest level and scaled to its pixels.
+                f0 = flow0.to(device=device, dtype=torch.float32).movedim(-1, 1)
+                flow = (cvx.resize_bilinear(f0, hk, wk) * params.pyr_scale**k).contiguous()
+            else:
+                flow = torch.zeros((n, 2, hk, wk), dtype=torch.float32, device=device)
         else:
             flow = cvx.resize_bilinear(flow, hk, wk) * (1.0 / params.pyr_scale)
         for _ in range(params.iters_at(k)):
@@ -334,18 +342,23 @@ def _level_loop(polys_of_level, n: int, h: int, w: int, params: FarnebackParams,
 
 def farneback_flow(prev: torch.Tensor, curr: torch.Tensor,
                    params: FarnebackParams = FarnebackParams(),
+                   flow0: Optional[torch.Tensor] = None, *,
                    kernels: bool = True) -> torch.Tensor:
     """Dense flow between two (batches of) grayscale frames.
 
     prev, curr: (B, H, W) or (H, W), uint8 or float; returns flow
     (B, H, W, 2) (or (H, W, 2)) with channels (dx, dy) in pixels, the
-    layout of cv2.calcOpticalFlowFarneback, starting from zero flow.
-    ``kernels=False`` runs the plain PyTorch versions on any device (the
-    on-card reference).
+    layout of cv2.calcOpticalFlowFarneback.  With
+    ``params.use_initial_flow`` and a ``flow0`` of the output's shape the
+    pyramid starts from flow0 (cv2's OPTFLOW_USE_INITIAL_FLOW); otherwise
+    from zero flow.  ``kernels=False`` runs the plain PyTorch versions on
+    any device (the on-card reference).
     """
     squeeze = prev.ndim == 2
     if squeeze:
         prev, curr = prev[None], curr[None]
+        if flow0 is not None and flow0.ndim == 3:
+            flow0 = flow0[None]
     n, h, w = prev.shape
     p_f = prev.float()
     c_f = curr.float()
@@ -356,16 +369,18 @@ def farneback_flow(prev: torch.Tensor, curr: torch.Tensor,
         return (poly(i0, params.poly_n, params.poly_sigma),
                 poly(i1, params.poly_n, params.poly_sigma))
 
-    out = _level_loop(polys_of_level, n, h, w, params, kernels, prev.device)
+    out = _level_loop(polys_of_level, n, h, w, params, flow0, kernels, prev.device)
     return out[0] if squeeze else out
 
 
 def farneback_flow_seq(frames: torch.Tensor,
                        params: FarnebackParams = FarnebackParams(),
+                       flow0: Optional[torch.Tensor] = None, *,
                        kernels: bool = True) -> torch.Tensor:
     """Flow for the N consecutive pairs of an (N+1, H, W) sequence.
 
-    Equal to farneback_flow(frames[:-1], frames[1:]), but each frame's
+    Equal to farneback_flow(frames[:-1], frames[1:], params, flow0) with
+    flow0 (N, H, W, 2), but each frame's
     level images and polynomial expansion are computed once: pair b
     reads r0 from frame b and warps r1 from frame b+1 (a batch slice of
     the one expansion, still contiguous).
@@ -378,4 +393,4 @@ def farneback_flow_seq(frames: torch.Tensor,
         p = poly(lv, params.poly_n, params.poly_sigma)
         return p[:-1], p[1:]
 
-    return _level_loop(polys_of_level, n1 - 1, h, w, params, kernels, frames.device)
+    return _level_loop(polys_of_level, n1 - 1, h, w, params, flow0, kernels, frames.device)

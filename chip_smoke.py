@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's flow + PC1 main path once on one CUDA card.
+"""Drive the PyTorch port's two paths once on one CUDA card: flow + PC1
+(Farnebäck) and the TV-L1 flow engine.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -6,7 +7,8 @@ Phases (any failed check raises, so the exit code is non-zero):
 
 1. device  — card name and power limit (nvidia-smi), torch / CUDA
              versions, the TF32 flags (both set False);
-2. build   — nvcc builds csrc/farneback.cu for sm_90a (build/kernels/);
+2. build   — nvcc builds csrc/farneback.cu and csrc/tvl1.cu for sm_90a
+             in parallel (build/kernels/), with ptxas' register report;
 3. kernels — K1 poly_exp, K2 update_matrices and K3 update_flow against
              their plain PyTorch versions on bench frames at 480×640,
              B = 8, with CUDA-event medians of both;
@@ -14,7 +16,13 @@ Phases (any failed check raises, so the exit code is non-zero):
              roi_body_flow_seq and then pc1_from_flow, with the launch
              counts, the kernel path against the plain path (on the card
              and on the CPU) and pairs/s beside the card's name and power;
-5. profile — device time by kernel over one chunk (torch.profiler).
+5. profile — device time by kernel over one chunk (torch.profiler);
+6. TV-L1 kernels — K5 warp_sample and one 30-iteration K6 pd_chain
+             against their plain versions on level-0 planes of the TV-L1
+             clip (16 pairs of 480×640), with CUDA-event medians;
+7. TV-L1 slice — tvl1_flow on the 16 pairs with default TVL1Params:
+             launch counts, the kernel path against the plain path on the
+             card and on the CPU, clips, frames/s and device time by kernel.
 
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  Imports neither JAX nor cv2.
@@ -22,10 +30,12 @@ The second-to-last line is the kernels JSON, the last line
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -35,7 +45,10 @@ CHUNK = 256
 CHECK_PAIRS = 8
 REPS = 20
 SOURCE = "btcs_pnes_optical_flow_tpu_torch/csrc/farneback.cu"
+TV_SOURCE = "btcs_pnes_optical_flow_tpu_torch/csrc/tvl1.cu"
 PALLAS = "btcs_pnes_optical_flow_tpu/ops/farneback_pallas.py"
+TV_PALLAS = "btcs_pnes_optical_flow_tpu/ops/tvl1_pallas.py"
+TV_PAIRS = 16  # the JAX bench's TV-L1 line: render_clip(17, seed=2)
 # (name, K, TPU kernel it replaces, tolerance against the plain version
 # relative to the plain output's largest magnitude, and why).
 KERNELS = (
@@ -49,6 +62,15 @@ KERNELS = (
      "the path's 1e-3 px bar"),
 )
 FLOW_TOL_PX = 1e-3  # the JAX package's fused-vs-exact 480p bar
+# TV-L1: (name, K, TPU kernel it replaces, tolerance, and why).
+TV_KERNELS = (
+    ("warp_sample", "K5", f"{PALLAS}:1359", 1e-5,
+     "relative to max|plain|: the plain clamp, floor and bilinear fp32 "
+     "operations in their order, without FMA contraction (bit-equal expected)"),
+    ("pd_chain", "K6", f"{TV_PALLAS}:204", 1e-4,
+     "px absolute over one 30-iteration chain: the plain factored "
+     "operations in their order, without FMA contraction"),
+)
 
 
 def _median_ms(fn, reps=REPS):
@@ -83,16 +105,21 @@ def phase_device():
 
 
 def phase_build():
-    from btcs_pnes_optical_flow_tpu_torch.ops import _build, farneback_cuda
+    from btcs_pnes_optical_flow_tpu_torch.ops import _build, farneback_cuda, tvl1_cuda
 
     print("== 2. build")
-    res = _build.load("farneback.cu")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        results = list(pool.map(_build.load, ("farneback.cu", "tvl1.cu")))
     farneback_cuda.library()
-    print(f"nvcc: {' '.join(res.command) if res.command else '(cached) ' + str(res.path)}")
-    for line in res.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"  ptxas: {line.strip()}")
-    print(f"build {res.seconds:.2f} s -> {res.path.name}")
+    tvl1_cuda.library()
+    for res in results:
+        print(f"nvcc: {' '.join(res.command) if res.command else '(cached) ' + str(res.path)}")
+        for line in res.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  ptxas: {line.strip()}")
+        print(f"build {res.seconds:.2f} s -> {res.path.name}")
+    print(f"both built in {time.perf_counter() - t0:.2f} s")
 
 
 def _rel_err(kern, plain):
@@ -126,32 +153,46 @@ def phase_kernels(clip, params, device):
     }
     rows = {}
     for name, kid, replaces, rtol, why in KERNELS:
-        kern_fn, plain_fn = calls[name]
-        kern = kern_fn()
-        plain = plain_fn()
-        torch.cuda.synchronize()
-        rel, abs_err = _rel_err(kern, plain)
-        if not torch.isfinite(kern).all():
-            raise AssertionError(f"{name}: non-finite kernel output")
-        ok = abs_err <= FLOW_TOL_PX if rtol is None else rel <= rtol
-        bar = f"{FLOW_TOL_PX} px abs" if rtol is None else f"{rtol} x max|plain|"
-        for _ in range(3):
-            kern_fn(), plain_fn()
-        ms_k, ms_p = [], []
-        for _ in range(2):  # plain, kernel, kernel, plain
-            ms_p.append(_median_ms(plain_fn))
-            ms_k.append(_median_ms(kern_fn))
-            ms_k.append(_median_ms(kern_fn))
-            ms_p.append(_median_ms(plain_fn))
-        rows[name] = dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
-                          launches=0, max_abs_err=abs_err,
-                          ms=statistics.median(ms_k), plain_ms=statistics.median(ms_p))
-        print(f"{kid} {name}: max_abs_err {abs_err:.3e} rel {rel:.3e} (tol {bar}: {why}) "
-              f"{'ok' if ok else 'FAIL'}; kernel {rows[name]['ms']:.4f} ms "
-              f"plain {rows[name]['plain_ms']:.4f} ms (median of {REPS}, 4 rounds)")
-        if not ok:
-            raise AssertionError(f"{name} disagrees with its plain version")
+        abs_tol = FLOW_TOL_PX if rtol is None else None
+        rows[name] = _check_and_time(name, kid, SOURCE, replaces, *calls[name],
+                                     rtol=rtol, abs_tol=abs_tol, why=why)
     return rows, flow_plain
+
+
+def _check_and_time(name, kid, source, replaces, kern_fn, plain_fn, rtol, abs_tol, why):
+    """Hold one kernel against its plain version (raise past the bar: abs_tol
+    when given, else rtol × max|plain|), then time both with CUDA events;
+    returns the kernel's JSON row.  A tuple output is compared stacked."""
+
+    def result(fn):
+        out = fn()
+        return torch.stack(out) if isinstance(out, tuple) else out
+
+    kern = result(kern_fn)
+    plain = result(plain_fn)
+    torch.cuda.synchronize()
+    rel, abs_err = _rel_err(kern, plain)
+    if not torch.isfinite(kern).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    ok = abs_err <= abs_tol if abs_tol is not None else rel <= rtol
+    bar = f"{abs_tol} px abs" if abs_tol is not None else f"{rtol} x max|plain|"
+    for _ in range(3):
+        kern_fn(), plain_fn()
+    ms_k, ms_p = [], []
+    for _ in range(2):  # plain, kernel, kernel, plain
+        ms_p.append(_median_ms(plain_fn))
+        ms_k.append(_median_ms(kern_fn))
+        ms_k.append(_median_ms(kern_fn))
+        ms_p.append(_median_ms(plain_fn))
+    row = dict(name=name, route="cuda", source=source, replaces=replaces,
+               launches=0, max_abs_err=abs_err,
+               ms=statistics.median(ms_k), plain_ms=statistics.median(ms_p))
+    print(f"{kid} {name}: max_abs_err {abs_err:.3e} rel {rel:.3e} (tol {bar}: {why}) "
+          f"{'ok' if ok else 'FAIL'}; kernel {row['ms']:.4f} ms "
+          f"plain {row['plain_ms']:.4f} ms (median of {REPS}, 4 rounds)")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return row
 
 
 def phase_slice(clip, params, device, smi, rows, flow_plain):
@@ -252,14 +293,12 @@ def phase_slice(clip, params, device, smi, rows, flow_plain):
     return chunks[0], exd, eyd, masks
 
 
-def phase_profile(chunk, exd, eyd, masks, params):
+def phase_profile(title, run):
     from torch.profiler import ProfilerActivity, profile
 
-    from btcs_pnes_optical_flow_tpu_torch.models.flow import roi_body_flow_seq
-
-    print("== 5. device time by kernel, one chunk")
+    print(title)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        roi_body_flow_seq(chunk, exd, eyd, masks, params)
+        run()
         torch.cuda.synchronize()
 
     def dev_us(e):  # named self_cuda_time_total before torch 2.4
@@ -277,6 +316,121 @@ def phase_profile(chunk, exd, eyd, masks, params):
     print(f"  total device time {total / 1e3:.3f} ms over {len(events)} kernel names")
 
 
+def _tv_level0_planes(prev, curr, flow):
+    """Level-0 inputs of the TV-L1 kernels: the source planes (I1, I1x,
+    I1y) of the blurred frame and the chain's six planes from the plain
+    warp at ``flow`` (B, 2, H, W), as ops/tvl1.py _tvl1_level builds them
+    (at level 0 the pyramid's resize is the identity)."""
+    from btcs_pnes_optical_flow_tpu_torch.ops import cvx
+    from btcs_pnes_optical_flow_tpu_torch.ops import tvl1 as tv
+
+    i0 = cvx.gaussian_blur_reflect101(prev.float() / 255.0, 5, 0.8)
+    i1 = cvx.gaussian_blur_reflect101(curr.float() / 255.0, 5, 0.8)
+    src = torch.stack([i1, *tv._grad(i1)], dim=1)
+    u, v = flow[:, 0].contiguous(), flow[:, 1].contiguous()
+    return src, (u, v, *tv._linearise(i0, src, u, v, tv.warp_sample_cf_plain))
+
+
+def phase_tvl1_kernels(tv_clip, device):
+    from btcs_pnes_optical_flow_tpu_torch.ops import tvl1 as tv
+    from btcs_pnes_optical_flow_tpu_torch.ops import tvl1_cuda as tc
+
+    h, w = tv_clip.shape[1:]
+    print(f"== 6. TV-L1 kernels vs plain at {h}x{w}, B={TV_PAIRS}")
+    p = tv.TVL1Params()
+    prev = torch.as_tensor(tv_clip[:-1], device=device)
+    curr = torch.as_tensor(tv_clip[1:], device=device)
+    # Realistic level-0 inputs: the plain path's flow for these pairs, the
+    # plain warp of (I1, I1x, I1y) there and the chain inputs built from it.
+    t0 = time.perf_counter()
+    flow_plain = tv.tvl1_flow(prev, curr, p, kernels=False)
+    torch.cuda.synchronize()
+    print(f"plain path on the card: {time.perf_counter() - t0:.3f} s (first call)")
+    flow_cf = flow_plain.movedim(-1, 1).contiguous()
+    src, planes = _tv_level0_planes(prev, curr, flow_cf)
+    chain = (*planes, p.n_iterations, p.tau, p.lambda_, p.theta)
+    calls = {
+        "warp_sample": (lambda: tc.warp_sample_cf(src, flow_cf),
+                        lambda: tv.warp_sample_cf_plain(src, flow_cf)),
+        "pd_chain": (lambda: tc.pd_chain(*chain), lambda: tv.pd_chain_plain(*chain)),
+    }
+    rows = {}
+    for name, kid, replaces, tol, why in TV_KERNELS:
+        rel = name == "warp_sample"
+        rows[name] = _check_and_time(name, kid, TV_SOURCE, replaces, *calls[name],
+                                     rtol=tol if rel else None,
+                                     abs_tol=None if rel else tol, why=why)
+    return rows, flow_plain
+
+
+def phase_tvl1_slice(tv_clip, device, smi, rows, flow_plain):
+    from btcs_pnes_optical_flow_tpu_torch.ops import tvl1 as tv
+    from btcs_pnes_optical_flow_tpu_torch.ops import tvl1_cuda as tc
+
+    h, w = tv_clip.shape[1:]
+    p = tv.TVL1Params()
+    print(f"== 7. TV-L1 slice: {TV_PAIRS} pairs of {h}x{w}, {p}")
+    prev = torch.as_tensor(tv_clip[:-1], device=device)
+    curr = torch.as_tensor(tv_clip[1:], device=device)
+    tv.tvl1_flow(prev, curr, p)  # warm-up (allocator, cached matrices)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    tc.reset_launch_counts()
+    t0 = time.perf_counter()
+    flow, clips = tv.tvl1_flow(prev, curr, p, return_clip=True)
+    flow_h, clips_h = flow.cpu(), clips.cpu()
+    kern_s = time.perf_counter() - t0
+    launches = dict(tc.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    n_lev = len(tv._pyramid_sizes(h, w, p))
+    n_warp = n_lev * p.n_warps
+    want = {"warp_sample": n_warp, "pd_chain": n_warp, "pd_iteration": n_warp * p.n_iterations}
+    print(f"launches: {launches} (expected {want}: {n_lev} levels x {p.n_warps} warps; "
+          f"each K6 chain is 1 invariants launch + {p.n_iterations} iteration launches)")
+    if launches != want:
+        raise AssertionError("TV-L1 launch counts differ from the path's schedule")
+    rows["warp_sample"]["launches"] = launches["warp_sample"]
+    rows["pd_chain"]["launches"] = launches["pd_chain"] + launches["pd_iteration"]
+    if flow_h.shape != (TV_PAIRS, h, w, 2) or clips_h.shape != (TV_PAIRS,):
+        raise AssertionError(f"flow {tuple(flow_h.shape)}, clips {tuple(clips_h.shape)}")
+    if clips_h.dtype != torch.int32 or int(clips_h.abs().sum()) != 0:
+        raise AssertionError("TV-L1 clips are not int32 zeros")
+    if not torch.isfinite(flow_h).all():
+        raise AssertionError("non-finite TV-L1 flow")
+    d = float((flow_h - flow_plain.cpu()).abs().max())
+    print(f"kernel vs plain path on the card, {TV_PAIRS} pairs: max |dflow| {d:.3e} px "
+          f"(bar {FLOW_TOL_PX}); clips all zero; |flow| max {float(flow_h.abs().max()):.4f} px, "
+          f"mean {float(flow_h.norm(dim=-1).mean()):.4f} px")
+    if not d <= FLOW_TOL_PX:
+        raise AssertionError("TV-L1 kernel path disagrees with the plain path")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tv.tvl1_flow(prev, curr, p, kernels=False).cpu()
+    plain_s = time.perf_counter() - t0
+
+    # The card against the plain path on the CPU at a small size.  Both
+    # sides run the fixed-length chain ("auto" on a CPU tensor would pick
+    # the epsilon loop).
+    small = np.ascontiguousarray(tv_clip[:3, ::5, ::5])
+    pr = dataclasses.replace(p, pd_engine="resident")
+    f_cpu = tv.tvl1_flow(torch.as_tensor(small[:-1]), torch.as_tensor(small[1:]), pr)
+    f_gpu = tv.tvl1_flow(torch.as_tensor(small[:-1], device=device),
+                         torch.as_tensor(small[1:], device=device), pr).cpu()
+    d_small = float((f_cpu - f_gpu).abs().max())
+    print(f"kernel path on the card vs plain path on the CPU, 2 pairs {small.shape[1:]}: "
+          f"max |dflow| {d_small:.3e} px (bar {FLOW_TOL_PX})")
+    if not d_small <= FLOW_TOL_PX:
+        raise AssertionError("TV-L1 on the card disagrees with the CPU")
+
+    print(f"TV-L1 {kern_s:.4f} s for {TV_PAIRS} pairs ({TV_PAIRS / kern_s:.2f} frames/s), "
+          f"plain path {plain_s:.4f} s ({TV_PAIRS / plain_s:.2f} frames/s), "
+          f"peak {peak:.2f} GiB on [{smi}]")
+    return prev, curr, p
+
+
 def main():
     smi = phase_device()
     from bench import render_clip
@@ -290,8 +444,19 @@ def main():
     print(f"bench clip {clip.shape} rendered in {time.perf_counter() - t0:.1f} s")
     rows, flow_plain = phase_kernels(clip, params, device)
     chunk, exd, eyd, masks = phase_slice(clip, params, device, smi, rows, flow_plain)
-    phase_profile(chunk, exd, eyd, masks, params)
-    print(json.dumps({"kernels": [rows[name] for name, *_ in KERNELS]}))
+    from btcs_pnes_optical_flow_tpu_torch.models.flow import roi_body_flow_seq
+    from btcs_pnes_optical_flow_tpu_torch.ops.tvl1 import tvl1_flow
+
+    phase_profile("== 5. device time by kernel, one chunk",
+                  lambda: roi_body_flow_seq(chunk, exd, eyd, masks, params))
+    tv_clip = render_clip(TV_PAIRS + 1, seed=2)
+    tv_rows, tv_flow_plain = phase_tvl1_kernels(tv_clip, device)
+    prev, curr, tv_params = phase_tvl1_slice(tv_clip, device, smi, tv_rows, tv_flow_plain)
+    phase_profile(f"== 7b. TV-L1 device time by kernel, {TV_PAIRS} pairs",
+                  lambda: tvl1_flow(prev, curr, tv_params))
+    rows.update(tv_rows)
+    names = [name for name, *_ in KERNELS] + [name for name, *_ in TV_KERNELS]
+    print(json.dumps({"kernels": [rows[name] for name in names]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

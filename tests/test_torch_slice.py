@@ -102,6 +102,11 @@ def test_port_never_imports_jax():
         "v = torch.cat([f.vx[:, 0]] * 30)\n"
         "pc1 = pc1_from_flow(v, v.flip(0))\n"
         "assert pc1.shape == (90,) and f.vx.shape == (3, 1)\n"
+        "from btcs_pnes_optical_flow_tpu_torch.ops import tvl1_cuda\n"
+        "from btcs_pnes_optical_flow_tpu_torch.ops.tvl1 import TVL1Params, tvl1_flow\n"
+        "tv, tc = tvl1_flow(torch.as_tensor(fr[:2]), torch.as_tensor(fr[1:3]),\n"
+        "                   TVL1Params(n_warps=2, n_iterations=4), return_clip=True)\n"
+        "assert tv.shape == (2, 40, 48, 2) and torch.isfinite(tv).all() and not tc.any()\n"
         "assert 'jax' not in sys.modules, [m for m in sys.modules if 'jax' in m]\n"
         "print('ok')\n"
     )
