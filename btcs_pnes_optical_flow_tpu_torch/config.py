@@ -26,8 +26,11 @@ def check_supported(params: FarnebackParams) -> FarnebackParams:
       ``warp_coarse_reach``, ``warp_coarse_tw``, ``warp_layout``) are
       ignored: the CUDA warp samples directly, has no reach and never
       clips.
-    - ``roi_active_px`` is ignored: every level is computed full-frame,
-      which leaves the flow inside the ROI unchanged.
+    - ``roi_active_px`` is honoured: a level whose box, quantized to the
+      port's tile lattice, leaves out some tiles computes M (K4) and flow
+      (K3 in box mode) over the box only; the flow inside the ROI equals
+      the full-frame flow bit for bit (``ops/farneback.py``,
+      ``roi_dispatch_params``).
     - ``iter_schedule`` is honoured through ``params.iters_at``.
     - ``use_initial_flow`` is honoured: ``farneback_flow`` and
       ``farneback_flow_seq`` start the pyramid from their ``flow0``

@@ -1,6 +1,7 @@
 // Farnebäck main-path kernels for Hopper (sm_90a), with a plain C interface.
 //
-// Three kernels, one per step of each pyramid level / iteration:
+// Four kernels: one per step of each pyramid level / iteration, and K2's
+// tile-list form for the levels that ROI dispatch boxes:
 //
 // K1 poly_exp_kernel — replaces btcs_pnes_optical_flow_tpu/ops/farneback_pallas.py
 //    poly_exp_fused_cf (body _poly_kernel_factory).  Per frame, the separable
@@ -36,7 +37,26 @@
 //    one block per 16×32 tile loads the 5 planes plus a winsize/2 halo with
 //    clamped indices, takes the separable sums through shared memory and
 //    solves per pixel.  The TPU kernel's fix_borders step repaired its
-//    zero-filled halo; clamped loads make it unnecessary.
+//    zero-filled halo; clamped loads make it unnecessary.  Box mode solves a
+//    sub-rectangle of the level only (ROI dispatch): loads clamp to the box,
+//    as the fused TPU level loop's compact subgrid replicates at its edges, and flow
+//    outside the box is not written.
+//
+// K4 update_matrices_tiles_kernel — replaces farneback_pallas.py
+//    update_matrices_banded_tiles_cf (body _make_kernel2).  K2's per-pixel
+//    math (the same device function, so the two stay bit-equal) over a list
+//    of tiles, written into an existing M in place; unlisted tiles are left
+//    as they were.  The level loop lists the tiles of each boxed level's ROI
+//    box for every pair.  Bound: as K2, memory — per listed tile the r0, flow
+//    and M bytes of its pixels plus the r1 corners.  Design: one block per
+//    listed tile reads its id from the list, so the grid is the list and no
+//    block is launched for an unlisted tile.  A tile is K2's 8×32 block, one
+//    thread per pixel: on an H100, 16×32 tiles with two rows per thread took
+//    48 registers against K2's 32 and ran 21% slower per pixel than K2.  The
+//    TPU kernel's anchored windows, band DMAs, coverage masks and residual
+//    clip counters (with window_from_residuals) exist because a TPU gather
+//    costs ~20 ns per index; a direct sample has no reach, so one visit
+//    always covers a tile and nothing needs counting.
 //
 // Built with -fmad=false: every product is rounded before its sum, as in the
 // plain PyTorch versions, so a kernel repeats their float32 operations in
@@ -161,7 +181,63 @@ __global__ void poly_exp_kernel(const float* __restrict__ img, const float* __re
   }
 }
 
-// rim = [sy (h), sx (w)]: the rim damping at (y, x) is sy[y] * sx[x].
+// One pixel (b, y, x) of M; rim = [sy (h), sx (w)], the rim damping at
+// (y, x) is sy[y] * sx[x].  K2 and K4 both call it, so they cannot drift apart.
+__device__ __forceinline__ void matrices_pixel(const float* __restrict__ r0,
+                                               const float* __restrict__ r1,
+                                               const float* __restrict__ flow,
+                                               const float* __restrict__ rim,
+                                               float* __restrict__ m, long long b, int y, int x,
+                                               int h, int w) {
+  const long long plane = (long long)h * w;
+  const long long pix = (long long)y * w + x;
+  const float scale = rim[y] * rim[h + x];
+  const float dx = flow[b * 2 * plane + pix];
+  const float dy = flow[b * 2 * plane + plane + pix];
+  const float* a = r0 + b * 5 * plane + pix;
+  const float fx = (float)x + dx;
+  const float fy = (float)y + dy;
+  const float fxf = floorf(fx);
+  const float fyf = floorf(fy);
+  const float ax = fx - fxf;
+  const float ay = fy - fyf;
+  // Clamp before the cast: (int) truncates and overflows; [-2, size]
+  // keeps the guard's verdict.  fmaxf maps a NaN to -2 (outside).
+  const int xi = (int)fminf(fmaxf(fxf, -2.f), (float)w);
+  const int yi = (int)fminf(fmaxf(fyf, -2.f), (float)h);
+  const bool inside = xi >= 0 && xi < w - 1 && yi >= 0 && yi < h - 1;
+  float s[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  if (inside) {
+    const float* c = r1 + b * 5 * plane + (long long)yi * w + xi;
+#pragma unroll
+    for (int ch = 0; ch < 5; ++ch) {
+      const float* p = c + ch * plane;
+      const float top = p[0] * (1.f - ax) + p[1] * ax;
+      const float bot = p[w] * (1.f - ax) + p[w + 1] * ax;
+      s[ch] = top * (1.f - ay) + bot * ay;
+    }
+  }
+  const float a0 = a[0], a1 = a[plane], a2 = a[2 * plane], a3 = a[3 * plane], a4 = a[4 * plane];
+  float r4 = inside ? (a2 + s[2]) * 0.5f : a2;
+  float r5 = inside ? (a3 + s[3]) * 0.5f : a3;
+  float r6 = inside ? (a4 + s[4]) * 0.25f : a4 * 0.5f;
+  float r2 = (a0 - s[0]) * 0.5f;  // s is 0 outside the guard
+  float r3 = (a1 - s[1]) * 0.5f;
+  r2 = r2 + r4 * dy + r6 * dx;
+  r3 = r3 + r6 * dy + r5 * dx;
+  r2 *= scale;
+  r3 *= scale;
+  r4 *= scale;
+  r5 *= scale;
+  r6 *= scale;
+  float* o = m + b * 5 * plane + pix;
+  o[0] = r4 * r4 + r6 * r6;
+  o[plane] = (r4 + r5) * r6;
+  o[2 * plane] = r5 * r5 + r6 * r6;
+  o[3 * plane] = r4 * r2 + r6 * r3;
+  o[4 * plane] = r6 * r2 + r5 * r3;
+}
+
 __global__ void update_matrices_kernel(const float* __restrict__ r0, const float* __restrict__ r1,
                                        const float* __restrict__ flow,
                                        const float* __restrict__ rim, float* __restrict__ m,
@@ -169,62 +245,39 @@ __global__ void update_matrices_kernel(const float* __restrict__ r0, const float
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= w || y >= h) return;
-  const long long plane = (long long)h * w;
-  const long long pix = (long long)y * w + x;
-  const float scale = rim[y] * rim[h + x];
-  for (long long b = blockIdx.z; b < batch; b += gridDim.z) {
-    const float dx = flow[b * 2 * plane + pix];
-    const float dy = flow[b * 2 * plane + plane + pix];
-    const float* a = r0 + b * 5 * plane + pix;
-    const float fx = (float)x + dx;
-    const float fy = (float)y + dy;
-    const float fxf = floorf(fx);
-    const float fyf = floorf(fy);
-    const float ax = fx - fxf;
-    const float ay = fy - fyf;
-    // Clamp before the cast: (int) truncates and overflows; [-2, size]
-    // keeps the guard's verdict.  fmaxf maps a NaN to -2 (outside).
-    const int xi = (int)fminf(fmaxf(fxf, -2.f), (float)w);
-    const int yi = (int)fminf(fmaxf(fyf, -2.f), (float)h);
-    const bool inside = xi >= 0 && xi < w - 1 && yi >= 0 && yi < h - 1;
-    float s[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-    if (inside) {
-      const float* c = r1 + b * 5 * plane + (long long)yi * w + xi;
-#pragma unroll
-      for (int ch = 0; ch < 5; ++ch) {
-        const float* p = c + ch * plane;
-        const float top = p[0] * (1.f - ax) + p[1] * ax;
-        const float bot = p[w] * (1.f - ax) + p[w + 1] * ax;
-        s[ch] = top * (1.f - ay) + bot * ay;
-      }
-    }
-    const float a0 = a[0], a1 = a[plane], a2 = a[2 * plane], a3 = a[3 * plane],
-                a4 = a[4 * plane];
-    float r4 = inside ? (a2 + s[2]) * 0.5f : a2;
-    float r5 = inside ? (a3 + s[3]) * 0.5f : a3;
-    float r6 = inside ? (a4 + s[4]) * 0.25f : a4 * 0.5f;
-    float r2 = (a0 - s[0]) * 0.5f;  // s is 0 outside the guard
-    float r3 = (a1 - s[1]) * 0.5f;
-    r2 = r2 + r4 * dy + r6 * dx;
-    r3 = r3 + r6 * dy + r5 * dx;
-    r2 *= scale;
-    r3 *= scale;
-    r4 *= scale;
-    r5 *= scale;
-    r6 *= scale;
-    float* o = m + b * 5 * plane + pix;
-    o[0] = r4 * r4 + r6 * r6;
-    o[plane] = (r4 + r5) * r6;
-    o[2 * plane] = r5 * r5 + r6 * r6;
-    o[3 * plane] = r4 * r2 + r6 * r3;
-    o[4 * plane] = r6 * r2 + r5 * r3;
-  }
+  for (long long b = blockIdx.z; b < batch; b += gridDim.z)
+    matrices_pixel(r0, r1, flow, rim, m, b, y, x, h, w);
 }
 
-// weights = [w (winsize), post-scale].
+// sel: the listed tiles' flat ids (b * n_i + i) * n_j + j on the
+// blockDim.y × blockDim.x lattice of the (h, w) level, n_i = ceil(h /
+// blockDim.y), n_j = ceil(w / blockDim.x).  Block s computes tile sel[s],
+// one thread per pixel (K2's block); pixels past the level's edge are
+// skipped and M outside the listed tiles is left as it was.
+__global__ void update_matrices_tiles_kernel(const float* __restrict__ r0,
+                                             const float* __restrict__ r1,
+                                             const float* __restrict__ flow,
+                                             const float* __restrict__ rim,
+                                             const int* __restrict__ sel, float* __restrict__ m,
+                                             int h, int w) {
+  const int n_i = (h + blockDim.y - 1) / blockDim.y;
+  const int n_j = (w + blockDim.x - 1) / blockDim.x;
+  const int tile = sel[blockIdx.x];  // ids < 2^31: sel is int32
+  const int b = tile / (n_i * n_j);
+  const int rem = tile - b * (n_i * n_j);
+  const int i = rem / n_j;
+  const int y = i * blockDim.y + threadIdx.y;
+  const int x = (rem - i * n_j) * blockDim.x + threadIdx.x;
+  if (y < h && x < w) matrices_pixel(r0, r1, flow, rim, m, b, y, x, h, w);
+}
+
+// weights = [w (winsize), post-scale].  The box [y_lo, y_hi] × [x_lo, x_hi]
+// (inclusive) is the image the kernel solves: M is read clamped to it, as
+// replicate borders at its edges, and flow is written only inside it.  The
+// whole level is the box (0, h-1, 0, w-1).
 __global__ void update_flow_kernel(const float* __restrict__ m, const float* __restrict__ weights,
                                    float* __restrict__ out, long long batch, int h, int w,
-                                   int winsize) {
+                                   int winsize, int y_lo, int y_hi, int x_lo, int x_hi) {
   extern __shared__ float smem[];
   const int rad = winsize / 2;
   const int in_h = kFlowTH + 2 * rad;
@@ -238,8 +291,8 @@ __global__ void update_flow_kernel(const float* __restrict__ m, const float* __r
   const int nthreads = blockDim.x * blockDim.y;
   for (int i = tid; i <= winsize; i += nthreads) s_w[i] = weights[i];
 
-  const int x0 = blockIdx.x * kFlowTW;
-  const int y0 = blockIdx.y * kFlowTH;
+  const int x0 = x_lo + blockIdx.x * kFlowTW;
+  const int y0 = y_lo + blockIdx.y * kFlowTH;
   const long long plane = (long long)h * w;
 
   for (long long b = blockIdx.z; b < batch; b += gridDim.z) {
@@ -250,8 +303,8 @@ __global__ void update_flow_kernel(const float* __restrict__ m, const float* __r
       const int rem = i - ch * in_plane;
       const int r = rem / in_w;
       const int c = rem - r * in_w;
-      const int y = clampi(y0 - rad + r, 0, h - 1);
-      const int x = clampi(x0 - rad + c, 0, w - 1);
+      const int y = clampi(y0 - rad + r, y_lo, y_hi);
+      const int x = clampi(x0 - rad + c, x_lo, x_hi);
       s_in[i] = src[ch * plane + (long long)y * w + x];
     }
     __syncthreads();
@@ -272,7 +325,7 @@ __global__ void update_flow_kernel(const float* __restrict__ m, const float* __r
       const int c = i - r * kFlowTW;
       const int y = y0 + r;
       const int x = x0 + c;
-      if (y >= h || x >= w) continue;
+      if (y > y_hi || x > x_hi) continue;
       float sum[5];
 #pragma unroll
       for (int ch = 0; ch < 5; ++ch) {
@@ -329,14 +382,25 @@ int fb_update_matrices(const float* r0, const float* r1, const float* flow, cons
 }
 
 int fb_update_flow(const float* m, const float* weights, float* out, long long batch, int h,
-                   int w, int winsize, void* stream) {
+                   int w, int winsize, int y_lo, int y_hi, int x_lo, int x_hi, void* stream) {
   const size_t smem = flow_smem_bytes(winsize);
   cudaError_t err = set_smem((const void*)update_flow_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 block(kThreadsX, kThreadsY);
-  const dim3 grid((w + kFlowTW - 1) / kFlowTW, (h + kFlowTH - 1) / kFlowTH, grid_z(batch));
+  const int bh = y_hi - y_lo + 1;
+  const int bw = x_hi - x_lo + 1;
+  const dim3 grid((bw + kFlowTW - 1) / kFlowTW, (bh + kFlowTH - 1) / kFlowTH, grid_z(batch));
   update_flow_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(m, weights, out, batch, h, w,
-                                                                  winsize);
+                                                                  winsize, y_lo, y_hi, x_lo, x_hi);
+  return (int)cudaGetLastError();
+}
+
+int fb_update_matrices_tiles(const float* r0, const float* r1, const float* flow,
+                             const float* rim, const int* sel, float* m, long long n_tiles, int h,
+                             int w, int tile_h, int tile_w, void* stream) {
+  const dim3 block(tile_w, tile_h);  // one thread per pixel of a tile
+  update_matrices_tiles_kernel<<<(unsigned)n_tiles, block, 0, (cudaStream_t)stream>>>(
+      r0, r1, flow, rim, sel, m, h, w);
   return (int)cudaGetLastError();
 }
 

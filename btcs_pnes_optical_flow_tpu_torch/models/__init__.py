@@ -3,4 +3,6 @@
 - ``flow`` — dense-flow feature extraction (frame pairs → ROI-averaged
              body-axis velocities).
 - ``pc1``  — band-pass + sliding-window PCA → dynamic PC1 waveform.
+- ``metrics`` — PC1 waveform → AUC / amplitude-decay slope / Kendall τ.
+- ``pipeline`` — video → flow features → PC1 → metrics (``run_full``).
 """

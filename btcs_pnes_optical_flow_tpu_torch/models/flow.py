@@ -3,7 +3,10 @@
 Port of ``btcs_pnes_optical_flow_tpu/models/flow.py`` (reference:
 compute_roi_mean_body_flow, optical_flow.py:136-189).  Frame pairs are
 the batch axis: a chunk of pairs goes through dense flow, the projection
-onto per-pair body axes and the mean over each ROI mask.
+onto per-pair body axes and the mean over each ROI mask.  ROI boxes
+(``params.roi_active_px``) pass through to the flow engine.  JAX's
+``roi_body_flow_checked`` served only the escalation tier of the banded
+warp; here it is ``roi_body_flow``, whose warp never clips.
 """
 
 from __future__ import annotations

@@ -1,0 +1,286 @@
+"""End-to-end pipeline: video → flow features → PC1 → metrics.
+
+Port of ``btcs_pnes_optical_flow_tpu/models/pipeline.py``: chunked decode
+on a prefetch thread → ROI-dispatched Farnebäck flow + ROI reduction on
+the device → band-pass + sliding-window PCA → metric head.  Every entry
+point takes the ``device`` it runs on; none picks one.
+
+The JAX package's escalation ladder (``escalate_clipped_pairs``) has no
+counterpart: the port's warp samples directly and never clips, so
+``run_flow_stage`` raises if a clip count is ever non-zero.  The
+per-chunk log line keeps its escalation counters, which stay 0.  CSVs
+are written through the JAX package's ``dataio/contracts.py`` (pandas),
+imported only when a CSV is asked for.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from btcs_pnes_optical_flow_tpu_torch.config import PipelineConfig
+from btcs_pnes_optical_flow_tpu_torch.dataio.contracts import Skeleton
+from btcs_pnes_optical_flow_tpu_torch.dataio.video import (
+    ChunkPrefetcher,
+    VideoSource,
+    open_source,
+)
+from btcs_pnes_optical_flow_tpu_torch.models import metrics as metrics_model
+from btcs_pnes_optical_flow_tpu_torch.models import pc1 as pc1_model
+from btcs_pnes_optical_flow_tpu_torch.models.flow import roi_body_flow_seq, skel_indices
+from btcs_pnes_optical_flow_tpu_torch.ops.cvx import fill_poly_mask
+from btcs_pnes_optical_flow_tpu_torch.ops.farneback import roi_dispatch_params
+from btcs_pnes_optical_flow_tpu_torch.utils.timing import StageTimer, logger
+
+# Chunks in flight before the oldest is resolved on the host: the device
+# computes chunk k while the host decodes and dispatches the next ones.
+_PIPELINE_DEPTH = 2
+
+
+@dataclasses.dataclass
+class FlowStageResult:
+    frame: np.ndarray      # (T,)
+    t_sec: np.ndarray      # (T,)
+    skel_idx: np.ndarray   # (T,)
+    axes_ok: np.ndarray    # (T,) bool
+    vx: np.ndarray         # (T, R)
+    vy: np.ndarray         # (T, R)
+    mag: np.ndarray        # (T, R)
+
+    def to_frame(self, roi: int = 0):
+        """flow.csv's table for one ROI (a pandas DataFrame)."""
+        from btcs_pnes_optical_flow_tpu.dataio import contracts
+
+        return contracts.flow_frame(
+            self.frame, self.t_sec, self.skel_idx, self.axes_ok.astype(int),
+            self.vx[:, roi], self.vy[:, roi], self.mag[:, roi],
+        )
+
+
+def run_flow_stage(
+    video,
+    skeleton: Skeleton,
+    roi_polygons: Sequence[np.ndarray],
+    config: PipelineConfig = PipelineConfig(),
+    chunk_pairs: int = 64,
+    out_csv: Optional[str] = None,
+    checkpoint_dir: Optional[str] = None,
+    *,
+    device,
+) -> FlowStageResult:
+    """Stage A: video + body axes + ROIs → per-frame flow features.
+
+    Behavioral clone of run_body_axis_flow_core (optical_flow.py:195-259),
+    chunked and batched: frame 0 and frames with invalid axes get NaN
+    features; each valid frame i uses the flow of the pair (i-1, i)
+    projected on frame i's axes.  Unless ``config.flow`` carries boxes
+    already, the flow is ROI-dispatched (``roi_dispatch_params``): the
+    ROI means equal the full-frame ones.
+    """
+    device = torch.device(device)
+    src = video if isinstance(video, VideoSource) else open_source(video, fps=skeleton.fps)
+    h, w = src.height, src.width
+    roi_masks = np.stack([fill_poly_mask(h, w, p) for p in roi_polygons])
+    masks_dev = torch.as_tensor(roi_masks, device=device)
+    n_roi = len(roi_polygons)
+    if config.flow.roi_active_px is None:
+        config = dataclasses.replace(
+            config, flow=roi_dispatch_params(config.flow, h, w, roi_masks))
+
+    store = None
+    if checkpoint_dir is not None:
+        from btcs_pnes_optical_flow_tpu.dataio.checkpoint import ChunkStore
+
+        store = ChunkStore(
+            checkpoint_dir,
+            meta={"chunk_pairs": chunk_pairs, "n_roi": n_roi, "h": h, "w": w},
+        )
+
+    rows_t: List[np.ndarray] = []
+    feats_vx: List[np.ndarray] = []
+    feats_vy: List[np.ndarray] = []
+    feats_mag: List[np.ndarray] = []
+    pending = []
+    all_pos: List[Optional[float]] = []
+    n_frames = 0
+    pairs_done = 0
+    t_start = time.perf_counter()
+
+    def resolve(entry):
+        nonlocal pairs_done
+        first, n_pairs, valid, t_chunk, sk, feats, clips = entry
+        if valid is None:  # resumed from checkpoint
+            vx, vy, mg = feats["vx"], feats["vy"], feats["mag"]
+        else:
+            n_clipped = int(torch.count_nonzero(clips[:n_pairs]))
+            if n_clipped:
+                raise RuntimeError(
+                    f"flow chunk @{first}: {n_clipped} pairs clipped; the direct-sample "
+                    "warp never clips, so this is a fault")
+            vx = feats.vx[:n_pairs].cpu().numpy()
+            vy = feats.vy[:n_pairs].cpu().numpy()
+            mg = feats.mag[:n_pairs].cpu().numpy()
+            inv = ~valid[:n_pairs]
+            vx[inv] = np.nan
+            vy[inv] = np.nan
+            mg[inv] = np.nan
+            if store is not None:
+                store.save(first, vx=vx, vy=vy, mag=mg, t=t_chunk, skel=sk, ok=valid[:n_pairs])
+        feats_vx.append(vx)
+        feats_vy.append(vy)
+        feats_mag.append(mg)
+        rows_t.append(t_chunk)
+        pairs_done += n_pairs
+        dt = time.perf_counter() - t_start
+        logger.info(
+            "flow chunk @%d: %d pairs done, %.1f pairs/s cumulative, "
+            "escalated %d (deep tier) / %d (exact engine)",
+            first, pairs_done, pairs_done / dt if dt > 0 else 0.0, 0, 0,
+        )
+
+    for first, frames, pos in ChunkPrefetcher(src, chunk_pairs):
+        all_pos.extend(pos if first == 0 else pos[1:])
+        n_frames = first + len(frames)
+        n_pairs = len(frames) - 1
+        if n_pairs <= 0:
+            continue
+        # One chunk shape: the tail chunk repeats its last frame (the
+        # padded pairs are dropped when the chunk is resolved).
+        if n_pairs < chunk_pairs:
+            reps = np.repeat(frames[-1:], chunk_pairs - n_pairs, axis=0)
+            frames = np.concatenate([frames, reps], axis=0)
+        # Timestamps / axes of each pair's current frame: the container
+        # timestamp when positive, else frame/fps (optical_flow.py:110-119).
+        idxs = np.minimum(first + 1 + np.arange(chunk_pairs), n_frames - 1)
+        pos_arr = np.array(
+            [p if p is not None else -1.0 for p in (pos + [None] * (chunk_pairs + 1 - len(pos)))],
+            dtype=np.float64,
+        )
+        cur = pos_arr[1 : chunk_pairs + 1]
+        t_chunk = np.where(cur > 0, cur / 1000.0, idxs / float(src.fps))
+        sk = skel_indices(t_chunk, skeleton.time_all)
+        ex = skeleton.ex[sk]
+        ey = skeleton.ey[sk]
+        ok = np.isfinite(ex).all(axis=1) & np.isfinite(ey).all(axis=1)
+
+        if store is not None and store.has(first):
+            pending.append((first, n_pairs, None, t_chunk[:n_pairs], sk[:n_pairs],
+                            store.load(first), None))
+        else:
+            ex_safe = np.where(ok[:, None], ex, 0.0).astype(np.float32)
+            ey_safe = np.where(ok[:, None], ey, 0.0).astype(np.float32)
+            feats, clips = roi_body_flow_seq(
+                torch.as_tensor(frames).to(device),
+                torch.as_tensor(ex_safe).to(device),
+                torch.as_tensor(ey_safe).to(device),
+                masks_dev,
+                config.flow,
+            )
+            valid = np.zeros(chunk_pairs, bool)
+            valid[:n_pairs] = ok[:n_pairs]
+            pending.append((first, n_pairs, valid, t_chunk[:n_pairs], sk[:n_pairs], feats, clips))
+        while len(pending) > _PIPELINE_DEPTH:
+            resolve(pending.pop(0))
+    for entry in pending:
+        resolve(entry)
+
+    # Frame 0's row (no pair → NaN features), optical_flow.py:236-247.
+    pos_all = np.array([p if p is not None else -1.0 for p in all_pos], dtype=np.float64)
+    t0 = pos_all[0] / 1000.0 if len(pos_all) and pos_all[0] > 0 else 0.0
+    t_sec = np.concatenate([[t0]] + rows_t) if rows_t else np.array([t0])
+    sk_all = skel_indices(t_sec, skeleton.time_all)
+    axes_ok = (np.isfinite(skeleton.ex[sk_all]).all(axis=1)
+               & np.isfinite(skeleton.ey[sk_all]).all(axis=1))
+    nanrow = np.full((1, n_roi), np.nan)
+    res = FlowStageResult(
+        frame=np.arange(n_frames),
+        t_sec=t_sec,
+        skel_idx=sk_all,
+        axes_ok=axes_ok,
+        vx=np.concatenate([nanrow] + feats_vx),
+        vy=np.concatenate([nanrow] + feats_vy),
+        mag=np.concatenate([nanrow] + feats_mag),
+    )
+    if out_csv is not None:
+        res.to_frame(0).to_csv(out_csv, index=False)
+    return res
+
+
+def run_pc1_stage(
+    flow: FlowStageResult,
+    config: PipelineConfig = PipelineConfig(),
+    out_csv: Optional[str] = None,
+    engine: str = "scan",
+    *,
+    device,
+) -> np.ndarray:
+    """Stage B: flow features → pc1_dyn per ROI, (T, R) float32."""
+    vx = torch.as_tensor(np.ascontiguousarray(flow.vx.T), dtype=torch.float32, device=device)
+    vy = torch.as_tensor(np.ascontiguousarray(flow.vy.T), dtype=torch.float32, device=device)
+    pc1 = pc1_model.pc1_from_flow_batch(vx, vy, config.pca, engine=engine).cpu().numpy().T
+    if out_csv is not None:
+        from btcs_pnes_optical_flow_tpu.dataio import contracts
+
+        contracts.pc1_frame(flow.t_sec, pc1[:, 0]).to_csv(out_csv, index=False)
+    return pc1
+
+
+def run_metrics_stage(
+    t_sec: np.ndarray,
+    pc1: np.ndarray,
+    config: PipelineConfig = PipelineConfig(),
+    out_csv: Optional[str] = None,
+    strict: bool = False,
+    *,
+    device,
+):
+    """Stage C: pc1 waveform(s) → metric rows (a list over ROIs)."""
+    pc1 = pc1[:, None] if pc1.ndim == 1 else pc1
+    out = [metrics_model.pc1_metrics(t_sec, pc1[:, r], config.metrics, strict=strict,
+                                     device=device)
+           for r in range(pc1.shape[1])]
+    if out_csv is not None:
+        from btcs_pnes_optical_flow_tpu.dataio import contracts
+
+        contracts.summary_frame(out[0], config.metrics.window_sec).to_csv(out_csv, index=False)
+    return out
+
+
+def run_full(
+    video,
+    skeleton: Skeleton,
+    roi_polygons: Sequence[np.ndarray],
+    config: PipelineConfig = PipelineConfig(),
+    chunk_pairs: int = 64,
+    flow_csv: Optional[str] = None,
+    pc1_csv: Optional[str] = None,
+    summary_csv: Optional[str] = None,
+    *,
+    device,
+    timer: Optional[StageTimer] = None,
+):
+    """video + skeleton + ROIs → (flow, pc1, metrics) on ``device``.
+
+    A ``timer`` collects the wall time of the stages "flow" (items:
+    frames), "pc1" and "metrics" (items: ROIs), fenced on a CUDA device.
+    """
+    def stage(name):
+        return timer.timed(name) if timer is not None else contextlib.nullcontext()
+
+    with stage("flow"):
+        flow = run_flow_stage(video, skeleton, roi_polygons, config, chunk_pairs, flow_csv,
+                              device=device)
+    with stage("pc1"):
+        pc1 = run_pc1_stage(flow, config, pc1_csv, device=device)
+    with stage("metrics"):
+        mets = run_metrics_stage(flow.t_sec, pc1, config, summary_csv, device=device)
+    if timer is not None:
+        timer.add_items("flow", len(flow.frame))
+        timer.add_items("pc1", pc1.shape[1])
+        timer.add_items("metrics", len(mets))
+    return flow, pc1, mets

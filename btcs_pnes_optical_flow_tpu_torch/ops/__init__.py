@@ -4,5 +4,6 @@
 calcOpticalFlowFarneback (plain PyTorch; the CUDA kernels sit behind
 ``farneback_cuda``), ``tvl1`` ↔ DualTVL1 flow (kernels behind
 ``tvl1_cuda``), ``filters`` ↔ scipy.signal sosfiltfilt, ``pca`` ↔ the
-reference's sliding-window PCA.
+reference's sliding-window PCA, ``peaks`` / ``stats`` ↔ the metric
+script's peak detection and SciPy statistics.
 """

@@ -18,6 +18,26 @@ import numpy as np
 import torch
 
 
+def bgr2gray_u8(bgr: torch.Tensor) -> torch.Tensor:
+    """BGR uint8 (..., 3) → gray uint8, OpenCV fixed-point arithmetic:
+    y = (R·9798 + G·19235 + B·3735 + 2^14) >> 15 (cv2.cvtColor
+    COLOR_BGR2GRAY, BT.601 weights in 15-bit fixed point)."""
+    b = bgr[..., 0].to(torch.int32)
+    g = bgr[..., 1].to(torch.int32)
+    r = bgr[..., 2].to(torch.int32)
+    return ((r * 9798 + g * 19235 + b * 3735 + (1 << 14)) >> 15).to(torch.uint8)
+
+
+def bgr2gray_u8_np(bgr: np.ndarray) -> np.ndarray:
+    """Host NumPy twin of ``bgr2gray_u8`` (identical integer math), for the
+    decode path."""
+    b = bgr[..., 0].astype(np.int32)
+    g = bgr[..., 1].astype(np.int32)
+    r = bgr[..., 2].astype(np.int32)
+    y = (r * 9798 + g * 19235 + b * 3735 + (1 << 14)) >> 15
+    return y.astype(np.uint8)
+
+
 def magnitude(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Elementwise sqrt(x² + y²) (cv2.magnitude)."""
     return torch.sqrt(x * x + y * y)

@@ -16,10 +16,18 @@ there, which take the plain version for a CPU tensor and launch the
 kernel for a CUDA tensor.  The public channel-last functions
 (``poly_exp``, ``update_matrices``, ``update_flow``) keep the JAX exact
 engine's layout so the two packages compare like with like.
+
+ROI dispatch (``roi_dispatch_params``, ``FarnebackParams.roi_active_px``)
+is the port of ``ops/farneback_fused.py``'s: a level whose ROI box,
+quantized to the ``TILE`` lattice, covers fewer tiles than the level
+assembles M over the box's tiles only (``update_matrices_tiles_cf``, K4)
+and solves the box only (``update_flow_cf`` in box mode); the flow
+outside the box keeps the level's initial flow.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Optional
 
@@ -36,6 +44,10 @@ from btcs_pnes_optical_flow_tpu_torch.ops import cvx, farneback_cuda
 # Rim damping applied to the normal equations near the image border
 # (5-pixel ramp; suppresses the unreliable constraints there).
 _BORDER_SCALE = (0.14, 0.14, 0.4472, 0.4472, 0.4472)
+# The port's tile lattice (rows, columns): the tiles K4 visits, one block of
+# one thread per pixel each (K2's block), and the grain to which ROI boxes
+# are quantized.
+TILE = (8, 32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -202,6 +214,28 @@ def update_matrices_cf_plain(r0: torch.Tensor, r1: torch.Tensor,
     return update_matrices_core(r0, sampled.movedim(-1, 1), inside, dx, dy, scale)
 
 
+def tile_mask(sel: torch.Tensor, b: int, h: int, w: int, tile) -> torch.Tensor:
+    """(b, h, w) bool: the pixels of the tiles listed in ``sel`` (flat ids
+    ``(b·n_i + i)·n_j + j`` on the ``tile`` lattice)."""
+    th, tw = tile
+    n_i, n_j = -(-h // th), -(-w // tw)
+    listed = torch.zeros(b * n_i * n_j, dtype=torch.bool, device=sel.device)
+    listed[sel.long()] = True
+    listed = listed.view(b, n_i, n_j)
+    return listed.repeat_interleave(th, 1).repeat_interleave(tw, 2)[:, :h, :w]
+
+
+def update_matrices_tiles_cf_plain(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
+                                   sel: torch.Tensor, m: torch.Tensor, tile) -> torch.Tensor:
+    """``update_matrices_cf_plain`` with the tiles listed in ``sel`` copied
+    into ``m`` (B, 5, H, W) in place; the other tiles of ``m`` are left as
+    they were.  Returns ``m``."""
+    b, _, h, w = r0.shape
+    listed = tile_mask(sel, b, h, w, tile)[:, None]
+    m.copy_(torch.where(listed, update_matrices_cf_plain(r0, r1, flow), m))
+    return m
+
+
 def update_matrices(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Channel-last form: r0, r1 (B, H, W, 5), flow (B, H, W, 2) → M
     (B, H, W, 5).  Runs the CUDA kernel for CUDA tensors."""
@@ -236,9 +270,19 @@ def solve_flow(msum: torch.Tensor) -> torch.Tensor:
     return torch.stack([fx, fy], dim=1)
 
 
-def update_flow_cf_plain(m: torch.Tensor, winsize: int, gaussian_win: bool) -> torch.Tensor:
+def update_flow_cf_plain(m: torch.Tensor, winsize: int, gaussian_win: bool,
+                         box=None, out=None) -> torch.Tensor:
     """Window-average M (B, 5, H, W) with replicate borders and solve →
-    flow (B, 2, H, W)."""
+    flow (B, 2, H, W).
+
+    With ``box=(y0, y1, x0, x1)`` (half-open) and ``out``: the same on the
+    box cut out of M (its edges replicate), pasted into ``out`` in place.
+    """
+    if box is not None:
+        y0, y1, x0, x1 = box
+        out[:, :, y0:y1, x0:x1] = update_flow_cf_plain(m[:, :, y0:y1, x0:x1], winsize,
+                                                       gaussian_win)
+        return out
     if gaussian_win:
         k = _gaussian_win_kernel(winsize)
         msum = cvx.sep_corr_replicate(m, k, k)
@@ -303,11 +347,80 @@ def _level_image(img_f: torch.Tensor, k: int, params: FarnebackParams, h: int, w
     return cvx.resize_bilinear(sm, hk, wk), hk, wk
 
 
+def roi_dispatch_params(params: FarnebackParams, h: int, w: int, roi_masks) -> FarnebackParams:
+    """FarnebackParams with per-level ROI-active boxes (``roi_active_px``).
+
+    NumPy copy of ``ops/farneback_fused.py:roi_dispatch_params``, which
+    returns the same boxes.  Flow is consumed only through the ROI means,
+    and flow at a pixel depends on a bounded neighbourhood: each solve
+    iteration widens it by winsize//2, each coarser level feeds the finer
+    one's initial flow through a 2-px bilinear support.  Fine to coarse:
+
+        need(0)   = ROI bounding box
+        box(k)    = need(k) ⊕ (iters_at(k)·(winsize//2) + 10)
+        need(k+1) = box(k)/2 ⊕ 2
+
+    roi_masks: (R, H, W) or (H, W) bool.  No ROI pixel → params unchanged.
+    """
+    m = np.asarray(roi_masks)
+    if m.ndim == 2:
+        m = m[None]
+    ys, xs = np.nonzero(m.any(axis=0))
+    if ys.size == 0:
+        return params
+    need = (int(ys.min()), int(ys.max()) + 1, int(xs.min()), int(xs.max()) + 1)
+    boxes = []
+    for k in range(params.num_levels(h, w) + 1):
+        halo = params.iters_at(k) * (params.winsize // 2) + 10
+        box = (need[0] - halo, need[1] + halo, need[2] - halo, need[3] + halo)
+        boxes.append(box)
+        need = (box[0] // 2 - 2, -(-box[1] // 2) + 2, box[2] // 2 - 2, -(-box[3] // 2) + 2)
+    return dataclasses.replace(params, roi_active_px=tuple(boxes))
+
+
+def box_tiles(box, hk: int, wk: int, tile=TILE):
+    """A level's ROI box (y_lo, y_hi, x_lo, x_hi) quantized outward to the
+    tile lattice of the (hk, wk) level → tile range (i0, i1, j0, j1), or None
+    when it covers every tile (the level then runs whole), following
+    ``ops/farneback_fused.py:137-142``."""
+    th, tw = tile
+    n_i, n_j = -(-hk // th), -(-wk // tw)
+    y_lo, y_hi, x_lo, x_hi = box
+    i0 = min(max(0, y_lo // th), n_i - 1)
+    i1 = max(i0 + 1, min(n_i, -(-y_hi // th)))
+    j0 = min(max(0, x_lo // tw), n_j - 1)
+    j1 = max(j0 + 1, min(n_j, -(-x_hi // tw)))
+    if (i1 - i0) * (j1 - j0) < n_i * n_j:
+        return i0, i1, j0, j1
+    return None
+
+
+def tile_box(tiles, hk: int, wk: int, tile=TILE):
+    """The pixels (y0, y1, x0, x1), half-open, that the tile range (i0, i1,
+    j0, j1) covers in the (hk, wk) level."""
+    th, tw = tile
+    i0, i1, j0, j1 = tiles
+    return i0 * th, min(i1 * th, hk), j0 * tw, min(j1 * tw, wk)
+
+
+def tile_list(n: int, tiles, hk: int, wk: int, device, tile=TILE) -> torch.Tensor:
+    """(n·tiles,) int32 flat ids of the tile range (i0, i1, j0, j1) in each
+    of n pairs, pair-major."""
+    th, tw = tile
+    n_i, n_j = -(-hk // th), -(-wk // tw)
+    i0, i1, j0, j1 = tiles
+    b = torch.arange(n, device=device)[:, None, None]
+    i = torch.arange(i0, i1, device=device)[None, :, None]
+    j = torch.arange(j0, j1, device=device)[None, None, :]
+    return ((b * n_i + i) * n_j + j).reshape(-1).to(torch.int32)
+
+
 def _kernel_steps(kernels: bool):
     if kernels:
         return (farneback_cuda.poly_exp_cf, farneback_cuda.update_matrices_cf,
-                farneback_cuda.update_flow_cf)
-    return poly_exp_cf_plain, update_matrices_cf_plain, update_flow_cf_plain
+                farneback_cuda.update_flow_cf, farneback_cuda.update_matrices_tiles_cf)
+    return (poly_exp_cf_plain, update_matrices_cf_plain, update_flow_cf_plain,
+            update_matrices_tiles_cf_plain)
 
 
 def _level_loop(polys_of_level, n: int, h: int, w: int, params: FarnebackParams,
@@ -316,10 +429,12 @@ def _level_loop(polys_of_level, n: int, h: int, w: int, params: FarnebackParams,
 
     polys_of_level(k, poly) -> (r0, r1): the (n, 5, hk, wk) expansions
     that level k's pairs warp from and to.  flow0: (n, H, W, 2) or None.
-    Returns flow (n, H, W, 2).
+    Returns flow (n, H, W, 2).  A level that ``params.roi_active_px``
+    boxes runs K4 and K3 over its box only; outside the box the flow keeps
+    the level's initial flow.
     """
     check_supported(params)
-    poly, um, uf = _kernel_steps(kernels)
+    poly, um, uf, um_tiles = _kernel_steps(kernels)
     flow = None
     for k in range(params.num_levels(h, w), -1, -1):
         hk, wk = params.level_size(h, w, k)
@@ -334,9 +449,23 @@ def _level_loop(polys_of_level, n: int, h: int, w: int, params: FarnebackParams,
                 flow = torch.zeros((n, 2, hk, wk), dtype=torch.float32, device=device)
         else:
             flow = cvx.resize_bilinear(flow, hk, wk) * (1.0 / params.pyr_scale)
+        tiles = None
+        if params.roi_active_px is not None and k < len(params.roi_active_px):
+            tiles = box_tiles(params.roi_active_px[k], hk, wk)
+        if tiles is None:
+            for _ in range(params.iters_at(k)):
+                m = um(r0, r1, flow)
+                flow = uf(m, params.winsize, params.gaussian_win)
+            continue
+        box = tile_box(tiles, hk, wk)
+        sel = tile_list(n, tiles, hk, wk, device)
+        # One M per level: K4 rewrites the box's tiles each iteration; K3 in
+        # box mode reads only those and writes the box of flow in place.
+        m = torch.empty((n, 5, hk, wk), dtype=torch.float32, device=device)
+        flow = flow.contiguous()
         for _ in range(params.iters_at(k)):
-            m = um(r0, r1, flow)
-            flow = uf(m, params.winsize, params.gaussian_win)
+            um_tiles(r0, r1, flow, sel, m, TILE)
+            uf(m, params.winsize, params.gaussian_win, box, flow)
     return flow.movedim(1, -1)
 
 

@@ -1,11 +1,13 @@
 """Wrappers of the Farnebäck CUDA kernels (``csrc/farneback.cu``).
 
-Port of ``btcs_pnes_optical_flow_tpu/ops/farneback_pallas.py``'s three
-main-path kernels:
+Port of ``btcs_pnes_optical_flow_tpu/ops/farneback_pallas.py``'s four
+Farnebäck kernels:
 
-- ``poly_exp_cf``        ← ``poly_exp_fused_cf`` (K1);
-- ``update_matrices_cf`` ← ``update_matrices_banded_cf`` (K2);
-- ``update_flow_cf``     ← ``update_flow_fused_cf`` (K3).
+- ``poly_exp_cf``              ← ``poly_exp_fused_cf`` (K1);
+- ``update_matrices_cf``       ← ``update_matrices_banded_cf`` (K2);
+- ``update_flow_cf``           ← ``update_flow_fused_cf`` (K3), with a box
+  mode for ROI dispatch;
+- ``update_matrices_tiles_cf`` ← ``update_matrices_banded_tiles_cf`` (K4).
 
 Each wrapper takes the plain PyTorch version of ``ops/farneback.py`` for
 a tensor on the CPU.  For a CUDA tensor it checks device, dtype, shape
@@ -25,7 +27,7 @@ import torch
 from btcs_pnes_optical_flow_tpu_torch.ops import _build
 from btcs_pnes_optical_flow_tpu_torch.ops import farneback as _plain
 
-LAUNCHES = {"poly_exp": 0, "update_matrices": 0, "update_flow": 0}
+LAUNCHES = {"poly_exp": 0, "update_matrices": 0, "update_flow": 0, "update_matrices_tiles": 0}
 # Shared memory one block may use on sm_90 (232,448 bytes).
 _MAX_SMEM = 232448
 _P = ctypes.c_void_p
@@ -45,7 +47,8 @@ def library():
     sigs = {
         "fb_poly_exp": [_P, _P, _P, _LL, _I, _I, _I, _P],
         "fb_update_matrices": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
-        "fb_update_flow": [_P, _P, _P, _LL, _I, _I, _I, _P],
+        "fb_update_flow": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _P],
+        "fb_update_matrices_tiles": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
         "fb_poly_exp_smem_bytes": [_I],
         "fb_update_flow_smem_bytes": [_I],
     }
@@ -140,11 +143,23 @@ def update_matrices_cf(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor) -
     return out
 
 
-def update_flow_cf(m: torch.Tensor, winsize: int, gaussian_win: bool) -> torch.Tensor:
-    """K3: M (B, 5, H, W) → flow (B, 2, H, W)."""
-    if m.device.type == "cpu":
-        return _plain.update_flow_cf_plain(m, winsize, gaussian_win)
+def update_flow_cf(m: torch.Tensor, winsize: int, gaussian_win: bool,
+                   box=None, out=None) -> torch.Tensor:
+    """K3: M (B, 5, H, W) → flow (B, 2, H, W).
+
+    Box mode (``box=(y0, y1, x0, x1)``, half-open, with ``out`` the level's
+    flow (B, 2, H, W)): solves the box only, reading M clamped to it, and
+    writes the box of ``out`` in place; the rest of ``out`` is untouched.
+    """
+    if (box is None) != (out is None):
+        raise ValueError("box and out go together")
     b, _, h, w = m.shape
+    if box is not None:
+        y0, y1, x0, x1 = (int(v) for v in box)
+        if not (0 <= y0 < y1 <= h and 0 <= x0 < x1 <= w):
+            raise ValueError(f"box {box} is empty or outside the {h}x{w} level")
+    if m.device.type == "cpu":
+        return _plain.update_flow_cf_plain(m, winsize, gaussian_win, box, out)
     _check(m, "m", (b, 5, h, w))
     if winsize < 1 or winsize % 2 == 0:
         raise ValueError(f"winsize must be odd and positive, got {winsize}")
@@ -152,10 +167,55 @@ def update_flow_cf(m: torch.Tensor, winsize: int, gaussian_win: bool) -> torch.T
     smem = lib.fb_update_flow_smem_bytes(winsize)
     if smem > _MAX_SMEM:
         raise ValueError(f"winsize={winsize} needs {smem} bytes of shared memory per block")
-    out = torch.empty((b, 2, h, w), dtype=torch.float32, device=m.device)
+    if box is None:
+        y0, y1, x0, x1 = 0, h, 0, w
+        out = torch.empty((b, 2, h, w), dtype=torch.float32, device=m.device)
+    else:
+        _check(out, "out", (b, 2, h, w))
+        if out.device != m.device:
+            raise ValueError("m and out must be on one device")
     if b:
         weights = _window_weights(winsize, bool(gaussian_win), m.device)
         LAUNCHES["update_flow"] += 1
         _launch(lib.fb_update_flow, m.data_ptr(), weights.data_ptr(), out.data_ptr(),
-                b, h, w, winsize)
+                b, h, w, winsize, y0, y1 - 1, x0, x1 - 1)
     return out
+
+
+def update_matrices_tiles_cf(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
+                             sel: torch.Tensor, m: torch.Tensor, tile) -> torch.Tensor:
+    """K4: K2 over the listed tiles, in place into M; returns ``m``.
+
+    ``sel`` (K,) int32 lists flat tile ids ``(b·n_i + i)·n_j + j`` on the
+    ``tile = (tile_h, tile_w)`` lattice of the level, n_i = ⌈H/tile_h⌉,
+    n_j = ⌈W/tile_w⌉.  M outside the listed tiles is left as it was.
+    """
+    b, _, h, w = r0.shape
+    th, tw = (int(v) for v in tile)
+    n_tiles = b * (-(-h // th)) * (-(-w // tw))
+    if sel.dtype != torch.int32 or sel.ndim != 1 or not sel.is_contiguous():
+        raise ValueError(f"sel must be a contiguous 1-D int32 tensor, got {sel.dtype} "
+                         f"{tuple(sel.shape)}")
+    if sel.device != r0.device:
+        raise ValueError(f"sel is on {sel.device}, the planes on {r0.device}")
+    if sel.numel():
+        lo, hi = torch.stack(torch.aminmax(sel)).tolist()  # one device read
+        if lo < 0 or hi >= n_tiles:
+            raise ValueError(f"sel holds tile ids in [{lo}, {hi}], outside [0, {n_tiles})")
+    if r0.device.type == "cpu":
+        return _plain.update_matrices_tiles_cf_plain(r0, r1, flow, sel, m, (th, tw))
+    _check(r0, "r0", (b, 5, h, w))
+    _check(r1, "r1", (b, 5, h, w))
+    _check(flow, "flow", (b, 2, h, w))
+    _check(m, "m", (b, 5, h, w))
+    if r1.device != r0.device or flow.device != r0.device or m.device != r0.device:
+        raise ValueError("r0, r1, flow and m must be on one device")
+    if th * tw > 1024:
+        raise ValueError(f"tile {tile} has more pixels than a block has threads (1024)")
+    if sel.numel():
+        rim = _rim_scale(h, w, r0.device)
+        LAUNCHES["update_matrices_tiles"] += 1
+        _launch(library().fb_update_matrices_tiles, r0.data_ptr(), r1.data_ptr(),
+                flow.data_ptr(), rim.data_ptr(), sel.data_ptr(), m.data_ptr(),
+                sel.numel(), h, w, th, tw)
+    return m

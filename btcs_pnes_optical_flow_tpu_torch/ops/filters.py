@@ -12,10 +12,12 @@ Port of ``btcs_pnes_optical_flow_tpu/ops/filters.py``'s band-pass path:
 The recurrence is a Python loop over samples, one small tensor step per
 sample for all runs and signals at once.  The JAX package's
 log-depth associative-scan engine (``engine="assoc"``) is not ported.
+``smooth_window_len`` is the metric head's window rule.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -184,3 +186,23 @@ def make_bandpass(low_hz: float, high_hz: float, fs: float, order: int = 4,
     zi_np = design.sosfilt_zi(sos_np).astype(dtype)
     padreq = design.sos_required_padlen(sos_np)
     return sos_np, zi_np, padreq
+
+
+def ensure_odd(n: int) -> int:
+    """int(n) | 1 (optical_PC1.py:47-52)."""
+    return int(n) | 1
+
+
+def smooth_window_len(fs: float, sec: float) -> int:
+    """Window length of the reference's smoother: odd(max(1, round(fs·sec))),
+    rounding half to even as Python's round does."""
+    r = fs * sec
+    f = math.floor(r)
+    d = r - f
+    if d > 0.5:
+        ri = f + 1
+    elif d < 0.5:
+        ri = f
+    else:
+        ri = f + 1 if f % 2 else f
+    return ensure_odd(max(1, ri))

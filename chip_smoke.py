@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's two paths once on one CUDA card: flow + PC1
-(Farnebäck) and the TV-L1 flow engine.
+"""Drive the PyTorch port's paths once on one CUDA card: flow + PC1
+(Farnebäck), the TV-L1 flow engine, and the production pipeline run_full
+(decode → ROI-dispatched flow → PC1 → metrics).
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -9,9 +10,11 @@ Phases (any failed check raises, so the exit code is non-zero):
              versions, the TF32 flags (both set False);
 2. build   — nvcc builds csrc/farneback.cu and csrc/tvl1.cu for sm_90a
              in parallel (build/kernels/), with ptxas' register report;
-3. kernels — K1 poly_exp, K2 update_matrices and K3 update_flow against
-             their plain PyTorch versions on bench frames at 480×640,
-             B = 8, with CUDA-event medians of both;
+3. kernels — K1 poly_exp, K2 update_matrices, K3 update_flow and K4
+             update_matrices_tiles (over the bench ROI's level-0 box and over
+             a seeded random half of all tiles) against their plain PyTorch
+             versions on bench frames at 480×640, B = 8, with CUDA-event
+             medians of both; K3's box mode against its plain version;
 4. slice   — the bench clip's 512 pairs as two 257-frame chunks through
              roi_body_flow_seq and then pc1_from_flow, with the launch
              counts, the kernel path against the plain path (on the card
@@ -22,7 +25,13 @@ Phases (any failed check raises, so the exit code is non-zero):
              clip (16 pairs of 480×640), with CUDA-event medians;
 7. TV-L1 slice — tvl1_flow on the 16 pairs with default TVL1Params:
              launch counts, the kernel path against the plain path on the
-             card and on the CPU, clips, frames/s and device time by kernel.
+             card and on the CPU, clips, frames/s and device time by kernel;
+8. pipeline — run_full on the 513-frame bench clip (ArraySource, the bench
+             ROI, body axes at θ = 0.3, chunks of 256 pairs, PipelineConfig()):
+             launches against the schedule derived from the ROI boxes, ROI
+             features against phase 4's full-frame ones, PC1 and metrics on
+             the card against the CPU, stage times and ROI-frames/s from
+             decode, then device time by kernel over one ROI-dispatched chunk.
 
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  Imports neither JAX nor cv2.
@@ -60,8 +69,15 @@ KERNELS = (
     ("update_flow", "K3", f"{PALLAS}:1802", None,
      "flow is a quotient by a determinant that can be small; held to "
      "the path's 1e-3 px bar"),
+    ("update_matrices_tiles", "K4", f"{PALLAS}:1040", 0.0,
+     "bit-equal: K2's device function, the plain version's operations in their order"),
 )
 FLOW_TOL_PX = 1e-3  # the JAX package's fused-vs-exact 480p bar
+# The bench ROI (bench.py:106) and body axes (bench.py:107-109).
+ROI = np.array([[140.0, 90.0], [520.0, 110.0], [500.0, 400.0], [120.0, 380.0]])
+THETA = 0.3
+FEATURE_TOL = 1e-6  # px/frame: ROI-dispatched vs full-frame ROI features (0.0 expected)
+METRIC_RTOL = 1e-4  # metric head, card vs CPU on the same PC1
 # TV-L1: (name, K, TPU kernel it replaces, tolerance, and why).
 TV_KERNELS = (
     ("warp_sample", "K5", f"{PALLAS}:1359", 1e-5,
@@ -151,12 +167,64 @@ def phase_kernels(clip, params, device):
         "update_flow": (lambda: fc.update_flow_cf(m, params.winsize, params.gaussian_win),
                         lambda: fb.update_flow_cf_plain(m, params.winsize, params.gaussian_win)),
     }
+    # K4 over the tiles of the bench ROI's level-0 box (the pipeline's list),
+    # then over a seeded random half of all tiles, into an M that holds
+    # zero-flow matrices, so that an unlisted tile written by mistake shows.
+    box0 = fb.roi_dispatch_params(params, h, w, roi_mask(h, w)).roi_active_px[0]
+    tiles0 = fb.box_tiles(box0, h, w)
+    th, tw = fb.TILE
+    n_tiles = CHECK_PAIRS * (-(-h // th)) * (-(-w // tw))
+    rand = np.random.default_rng(0).permutation(n_tiles)[: n_tiles // 2].astype(np.int32)
+    base = fb.update_matrices_cf_plain(r0, r1, torch.zeros_like(flow_cf))
+    lists = {"ROI box": fb.tile_list(CHECK_PAIRS, tiles0, h, w, device),
+             "random half": torch.as_tensor(rand, device=device)}
+    print(f"K4 lists: ROI box tiles {tiles0} of the {-(-h // th)}x{-(-w // tw)} lattice "
+          f"({lists['ROI box'].numel()} tiles), random half ({rand.size} of {n_tiles})")
+    k4_bufs = {key: (base.clone(), base.clone()) for key in lists}
+
+    def k4_calls(key):
+        sel, (mk, mp) = lists[key], k4_bufs[key]
+        return (lambda: fc.update_matrices_tiles_cf(r0, r1, flow_cf, sel, mk, fb.TILE),
+                lambda: fb.update_matrices_tiles_cf_plain(r0, r1, flow_cf, sel, mp, fb.TILE))
+
+    calls["update_matrices_tiles"] = k4_calls("ROI box")
     rows = {}
     for name, kid, replaces, rtol, why in KERNELS:
         abs_tol = FLOW_TOL_PX if rtol is None else None
         rows[name] = _check_and_time(name, kid, SOURCE, replaces, *calls[name],
                                      rtol=rtol, abs_tol=abs_tol, why=why)
+    name, kid, replaces, rtol, why = next(k for k in KERNELS if k[0] == "update_matrices_tiles")
+    half = _check_and_time(name, kid, SOURCE, replaces, *k4_calls("random half"),
+                           rtol=rtol, abs_tol=None, why=why + "; random half list")
+    rows["update_matrices_tiles"]["max_abs_err"] = max(
+        rows["update_matrices_tiles"]["max_abs_err"], half["max_abs_err"])
+    for key, sel in lists.items():
+        listed = fb.tile_mask(sel, CHECK_PAIRS, h, w, fb.TILE)[:, None].expand_as(base)
+        for buf in k4_bufs[key]:
+            if not torch.equal(buf[~listed], base[~listed]):
+                raise AssertionError(f"K4 ({key}) wrote outside its listed tiles")
+    print("K4: unlisted tiles bitwise unchanged for both lists")
+
+    # K3 box mode over the level-0 box, against its plain version.
+    box = fb.tile_box(tiles0, h, w)
+    out0 = flow_cf.clone()
+    kern = fc.update_flow_cf(m, params.winsize, params.gaussian_win, box, out0.clone())
+    plain = fb.update_flow_cf_plain(m, params.winsize, params.gaussian_win, box, out0.clone())
+    torch.cuda.synchronize()
+    d_box = float((kern - plain).abs().max())
+    inside = torch.zeros_like(out0, dtype=torch.bool)
+    inside[:, :, box[0]:box[1], box[2]:box[3]] = True
+    print(f"K3 box mode {box}: max_abs_err {d_box:.3e} px against its plain version "
+          f"(bar {FLOW_TOL_PX} px, K3's; bit-equal expected)")
+    if not d_box <= FLOW_TOL_PX or not torch.equal(kern[~inside], out0[~inside]):
+        raise AssertionError("K3 box mode disagrees with its plain version")
     return rows, flow_plain
+
+
+def roi_mask(h, w):
+    from btcs_pnes_optical_flow_tpu_torch.ops.cvx import fill_poly_mask
+
+    return fill_poly_mask(h, w, ROI)
 
 
 def _check_and_time(name, kid, source, replaces, kern_fn, plain_fn, rtol, abs_tol, why):
@@ -202,7 +270,6 @@ def phase_slice(clip, params, device, smi, rows, flow_plain):
     from btcs_pnes_optical_flow_tpu_torch.models.pc1 import pc1_from_flow
     from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
     from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
-    from btcs_pnes_optical_flow_tpu_torch.ops.cvx import fill_poly_mask
 
     print(f"== 4. slice: {N_PAIRS} pairs of {H}x{W}, chunks of {CHUNK}, then PC1")
     # The kernel path against the plain path on the card (first 8 pairs).
@@ -223,11 +290,9 @@ def phase_slice(clip, params, device, smi, rows, flow_plain):
     if not d_small <= FLOW_TOL_PX:
         raise AssertionError("card disagrees with the CPU")
 
-    roi = np.array([[140.0, 90.0], [520.0, 110.0], [500.0, 400.0], [120.0, 380.0]])
-    theta = 0.3
-    ex = np.tile(np.array([np.cos(theta), -np.sin(theta)], np.float32), (CHUNK, 1))
-    ey = np.tile(np.array([np.sin(theta), np.cos(theta)], np.float32), (CHUNK, 1))
-    mask = fill_poly_mask(H, W, roi)[None]
+    ex = np.tile(np.array([np.cos(THETA), -np.sin(THETA)], np.float32), (CHUNK, 1))
+    ey = np.tile(np.array([np.sin(THETA), np.cos(THETA)], np.float32), (CHUNK, 1))
+    mask = roi_mask(H, W)[None]
     frames, exd, eyd, masks = to_device(clip, ex, ey, mask, device)
     chunks = [frames[s : s + CHUNK + 1] for s in range(0, N_PAIRS, CHUNK)]
     roi_body_flow_seq(chunks[0][: CHECK_PAIRS + 1], exd[:CHECK_PAIRS], eyd[:CHECK_PAIRS],
@@ -249,12 +314,12 @@ def phase_slice(clip, params, device, smi, rows, flow_plain):
     n_lev = params.num_levels(H, W) + 1
     n_it = sum(params.iters_at(k) for k in range(n_lev))
     want = {"poly_exp": n_lev * n_chunks, "update_matrices": n_it * n_chunks,
-            "update_flow": n_it * n_chunks}
+            "update_flow": n_it * n_chunks, "update_matrices_tiles": 0}
     print(f"launches over {n_chunks} chunks: {launches} (expected {want}: "
           f"{n_lev}/{n_it}/{n_it} per chunk)")
     if launches != want:
         raise AssertionError("launch counts differ from the main path's schedule")
-    for name in rows:
+    for name in ("poly_exp", "update_matrices", "update_flow"):
         rows[name]["launches"] = launches[name]
     if vx_h.shape != (N_PAIRS,) or clips.shape != (N_PAIRS,):
         raise AssertionError(f"feature shapes {tuple(vx_h.shape)}, clips {tuple(clips.shape)}")
@@ -290,7 +355,103 @@ def phase_slice(clip, params, device, smi, rows, flow_plain):
     print(f"flow {flow_time:.4f} s ({N_PAIRS / flow_time:.2f} pairs/s), "
           f"PC1 {pca_time:.4f} s, flow+PCA {N_PAIRS / (flow_time + pca_time):.2f} ROI-frames/s, "
           f"peak {peak:.2f} GiB on [{smi}]")
-    return chunks[0], exd, eyd, masks
+    return chunks[0], exd, eyd, masks, (vx_h, vy_h, mg_h)
+
+
+def _launch_schedule(params, h, w, n_chunks):
+    """Launches per kernel that run_flow_stage makes over n_chunks chunks,
+    derived from the ROI boxes: a boxed level runs K4 in place of K2."""
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
+
+    want = {"poly_exp": 0, "update_matrices": 0, "update_flow": 0, "update_matrices_tiles": 0}
+    for k in range(params.num_levels(h, w) + 1):
+        boxed = fb.box_tiles(params.roi_active_px[k], *params.level_size(h, w, k)) is not None
+        it = params.iters_at(k)
+        want["poly_exp"] += n_chunks
+        want["update_matrices_tiles" if boxed else "update_matrices"] += it * n_chunks
+        want["update_flow"] += it * n_chunks
+    return want
+
+
+def phase_pipeline(clip, device, smi, rows, full_feats):
+    from bench import H, W
+    from btcs_pnes_optical_flow_tpu_torch.config import PipelineConfig
+    from btcs_pnes_optical_flow_tpu_torch.dataio.contracts import Skeleton
+    from btcs_pnes_optical_flow_tpu_torch.dataio.video import ArraySource
+    from btcs_pnes_optical_flow_tpu_torch.models.pipeline import (
+        run_full, run_metrics_stage, run_pc1_stage)
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
+    from btcs_pnes_optical_flow_tpu_torch.utils.timing import StageTimer
+
+    n = clip.shape[0]
+    cfg = PipelineConfig()
+    print(f"== 8. pipeline: run_full on {n} frames of {H}x{W}, chunks of {CHUNK} pairs, "
+          f"PipelineConfig(), the bench ROI")
+    t = np.arange(n) / 30.0
+    skel = Skeleton(time_all=t, fps=30.0,
+                    ex=np.tile([np.cos(THETA), -np.sin(THETA)], (n, 1)),
+                    ey=np.tile([np.sin(THETA), np.cos(THETA)], (n, 1)))
+    flow_p = fb.roi_dispatch_params(cfg.flow, H, W, roi_mask(H, W))
+    for k, box in enumerate(flow_p.roi_active_px):
+        hk, wk = flow_p.level_size(H, W, k)
+        print(f"level {k} ({hk}x{wk}): ROI box {box} -> tiles {fb.box_tiles(box, hk, wk)}")
+    n_chunks = -(-(n - 1) // CHUNK)
+    want = _launch_schedule(flow_p, H, W, n_chunks)
+    # Warm-up on one chunk (allocator, cached tables), then the measured run.
+    run_full(ArraySource(clip[: CHUNK + 1], fps=30.0), skel, [ROI], cfg, CHUNK, device=device)
+    torch.cuda.synchronize()
+    fc.reset_launch_counts()
+    timer = StageTimer(device)
+    t0 = time.perf_counter()
+    flow, pc1, mets = run_full(ArraySource(clip, fps=30.0), skel, [ROI], cfg, CHUNK,
+                               device=device, timer=timer)
+    e2e = time.perf_counter() - t0
+    launches = dict(fc.LAUNCHES)
+    print(f"launches over {n_chunks} chunks: {launches} (expected from the boxes {want})")
+    if launches != want or not launches["update_matrices_tiles"]:
+        raise AssertionError("pipeline launches differ from the ROI-box schedule")
+    rows["update_matrices_tiles"]["launches"] = launches["update_matrices_tiles"]
+
+    if flow.vx.shape != (n, 1) or not np.isnan(flow.vx[0, 0]):
+        raise AssertionError(f"flow features {flow.vx.shape}, row 0 {flow.vx[0]}")
+    d_feat = max(float(np.abs(getattr(flow, nm)[1:, 0] - ref.numpy()).max())
+                 for nm, ref in zip(("vx", "vy", "mag"), full_feats))
+    print(f"ROI features vs phase 4's full-frame features, {n - 1} pairs: max |d| "
+          f"{d_feat:.3e} px/frame (bar {FEATURE_TOL}); clips zero (run_flow_stage raises "
+          f"otherwise)")
+    if not d_feat <= FEATURE_TOL:
+        raise AssertionError("ROI-dispatched features differ from the full-frame ones")
+
+    pc1_cpu = run_pc1_stage(flow, cfg, device="cpu")
+    fin = np.isfinite(pc1_cpu[:, 0])
+    if not np.array_equal(np.isfinite(pc1[:, 0]), fin) or fin.sum() < n - 1:
+        raise AssertionError("PC1's finite samples differ between the card and the CPU")
+    corr = float(np.corrcoef(pc1[fin, 0], pc1_cpu[fin, 0])[0, 1])
+    print(f"PC1 {pc1.shape}: card vs CPU corr {corr:.9f}, max |d| "
+          f"{float(np.abs(pc1[fin, 0] - pc1_cpu[fin, 0]).max()):.3e}")
+    if not corr >= 0.9999:
+        raise AssertionError("PC1 on the card disagrees with the CPU")
+
+    m_gpu = mets[0]
+    m_cpu = run_metrics_stage(flow.t_sec, pc1, cfg, device="cpu")[0]
+    print("metrics, card | CPU on the card's PC1: " + ", ".join(
+        f"{f} {float(getattr(m_gpu, f)):.6g} | {float(getattr(m_cpu, f)):.6g}"
+        for f in m_gpu._fields))
+    for f in ("peak_n", "status"):
+        if int(getattr(m_gpu, f)) != int(getattr(m_cpu, f)):
+            raise AssertionError(f"metric {f} differs between the card and the CPU")
+    if int(m_gpu.status) != 0:
+        raise AssertionError(f"metric status {int(m_gpu.status)}")
+    for f in ("pc1_area", "ads_slope", "ads_r2", "kendall_tau", "kendall_p"):
+        a, b = float(getattr(m_gpu, f)), float(getattr(m_cpu, f))
+        if not (np.isnan(a) and np.isnan(b)) and not abs(a - b) <= METRIC_RTOL * abs(b):
+            raise AssertionError(f"metric {f}: card {a} vs CPU {b} (rtol {METRIC_RTOL})")
+
+    st = {k: round(v, 4) for k, v in timer.times.items()}
+    print(f"stage seconds {st} ({timer.report()}); end to end {e2e:.4f} s from decode, "
+          f"{n / e2e:.2f} ROI-frames/s on [{smi}]")
+    return flow_p
 
 
 def phase_profile(title, run):
@@ -443,7 +604,8 @@ def main():
     clip = render_clip(N_PAIRS + 1)
     print(f"bench clip {clip.shape} rendered in {time.perf_counter() - t0:.1f} s")
     rows, flow_plain = phase_kernels(clip, params, device)
-    chunk, exd, eyd, masks = phase_slice(clip, params, device, smi, rows, flow_plain)
+    chunk, exd, eyd, masks, full_feats = phase_slice(clip, params, device, smi, rows,
+                                                     flow_plain)
     from btcs_pnes_optical_flow_tpu_torch.models.flow import roi_body_flow_seq
     from btcs_pnes_optical_flow_tpu_torch.ops.tvl1 import tvl1_flow
 
@@ -455,6 +617,9 @@ def main():
     phase_profile(f"== 7b. TV-L1 device time by kernel, {TV_PAIRS} pairs",
                   lambda: tvl1_flow(prev, curr, tv_params))
     rows.update(tv_rows)
+    flow_p = phase_pipeline(clip, device, smi, rows, full_feats)
+    phase_profile("== 8b. device time by kernel, one ROI-dispatched chunk",
+                  lambda: roi_body_flow_seq(chunk, exd, eyd, masks, flow_p))
     names = [name for name, *_ in KERNELS] + [name for name, *_ in TV_KERNELS]
     print(json.dumps({"kernels": [rows[name] for name in names]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""The CUDA kernels K1–K3 (Farnebäck) and K5–K6 (TV-L1) against their
-plain PyTorch versions, on the card.
+"""The CUDA kernels K1–K4 (Farnebäck) and K5–K6 (TV-L1) against their
+plain PyTorch versions, and the pipeline's flow stage against the CPU,
+on the card.
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
 one.  The file imports neither JAX nor the repository's conftest, so it
@@ -90,7 +91,8 @@ def test_flow_seq_kernels_match_plain(card):
     kern = fb.farneback_flow_seq(frames, p)
     levels = p.num_levels(140, 180) + 1
     iters = sum(p.iters_at(k) for k in range(levels))
-    assert fc.LAUNCHES == {"poly_exp": levels, "update_matrices": iters, "update_flow": iters}
+    assert fc.LAUNCHES == {"poly_exp": levels, "update_matrices": iters, "update_flow": iters,
+                           "update_matrices_tiles": 0}
     plain = fb.farneback_flow_seq(frames, p, kernels=False)
     assert float((kern - plain).abs().max()) <= 1e-3  # the path's px bar
 
@@ -108,6 +110,132 @@ def test_wrappers_reject_bad_inputs(card):
         fc.update_flow_cf(p, 14, False)
     with pytest.raises(ValueError):
         fc.poly_exp_cf(img, 200, 30.0)  # halo past the shared memory of a block
+
+
+# K4 / K3 box mode: odd sizes below one tile, ragged edge tiles, a width
+# of several tile columns.
+TILE_SHAPES = [(3, 7, 9), (2, 45, 67), (1, 33, 250)]
+
+
+def _tile_ids(case, b, h, w):
+    th, tw = fb.TILE
+    n_i, n_j = -(-h // th), -(-w // tw)
+    total = b * n_i * n_j
+    ids = np.arange(total)
+    edge = (ids // n_j % n_i == n_i - 1) | (ids % n_j == n_j - 1)
+    return {
+        "empty": ids[:0],
+        "one": ids[total // 2 : total // 2 + 1],
+        "all": ids,
+        "edges": ids[edge],
+        "random_half": np.random.default_rng(7).permutation(total)[: max(1, total // 2)],
+    }[case]
+
+
+@pytest.mark.parametrize("shape", TILE_SHAPES)
+@pytest.mark.parametrize("case", ["empty", "one", "all", "edges", "random_half"])
+def test_update_matrices_tiles_kernel(card, shape, case):
+    b, h, w = shape
+    p0 = fb.poly_exp_cf_plain(_img(shape, 11).to(card), 5, 1.2)
+    p1 = fb.poly_exp_cf_plain(_img(shape, 12).to(card), 5, 1.2)
+    flow = torch.as_tensor(
+        np.random.default_rng(13).normal(size=(b, 2, h, w)).astype(np.float32) * 4).to(card)
+    sel = torch.as_tensor(_tile_ids(case, b, h, w).astype(np.int32)).to(card)
+    m0 = torch.as_tensor(np.random.default_rng(14).normal(size=(b, 5, h, w)).astype(np.float32))
+    m0 = m0.to(card)
+    fc.reset_launch_counts()
+    kern = fc.update_matrices_tiles_cf(p0, p1, flow, sel, m0.clone(), fb.TILE)
+    assert fc.LAUNCHES["update_matrices_tiles"] == (1 if sel.numel() else 0)
+    plain = fb.update_matrices_tiles_cf_plain(p0, p1, flow, sel, m0.clone(), fb.TILE)
+    listed = fb.tile_mask(sel, b, h, w, fb.TILE)[:, None].expand(b, 5, h, w)
+    # Unlisted tiles are left bitwise as they were; listed ones are K2's
+    # pixels bit for bit (one device function) and K2's bar from the plain.
+    assert torch.equal(kern[~listed], m0[~listed])
+    assert torch.equal(kern[listed], fc.update_matrices_cf(p0, p1, flow)[listed])
+    assert _rel(kern, plain) <= 1e-5
+
+
+def _boxes(h, w):
+    return [(0, h // 2 + 1, 0, w // 2 + 1), (h // 3, h, w // 3, w), (0, h, 0, w),
+            (min(2, h - 1), h - 1, 1, max(2, w - 3))]
+
+
+@pytest.mark.parametrize("shape", TILE_SHAPES)
+@pytest.mark.parametrize("which", range(4))
+def test_update_flow_box_mode(card, shape, which):
+    b, h, w = shape
+    box = _boxes(h, w)[which]
+    y0, y1, x0, x1 = box
+    p0 = fb.poly_exp_cf_plain(_img(shape, 15).to(card), 5, 1.2)
+    p1 = fb.poly_exp_cf_plain(_img(shape, 15).roll(1, -1).to(card), 5, 1.2)
+    m = fb.update_matrices_cf_plain(p0, p1, torch.zeros((b, 2, h, w), device=card))
+    out0 = torch.as_tensor(
+        np.random.default_rng(16).normal(size=(b, 2, h, w)).astype(np.float32)).to(card)
+    kern = fc.update_flow_cf(m, 15, False, box, out0.clone())
+    plain = fb.update_flow_cf_plain(m, 15, False, box, out0.clone())
+    inside = torch.zeros((b, 2, h, w), dtype=torch.bool, device=card)
+    inside[:, :, y0:y1, x0:x1] = True
+    assert torch.equal(kern[~inside], out0[~inside])
+    assert float((kern - plain).abs().max()) <= 1e-3  # K3's bar
+    # The box solved alone equals the kernel on the cut-out M.
+    alone = fc.update_flow_cf(m[:, :, y0:y1, x0:x1].contiguous(), 15, False)
+    assert torch.equal(kern[:, :, y0:y1, x0:x1], alone)
+
+
+def test_tile_and_box_wrappers_reject_bad_inputs(card):
+    img = _img((2, 20, 30), 6).to(card)
+    p = fc.poly_exp_cf(img, 5, 1.2)
+    flow = torch.zeros((2, 2, 20, 30), device=card)
+    m = torch.zeros((2, 5, 20, 30), device=card)
+    ok = torch.tensor([0, 3], dtype=torch.int32, device=card)
+    fc.update_matrices_tiles_cf(p, p, flow, ok, m, fb.TILE)
+    # 2 frames of 20×30 are 2 × 3×1 tiles of 8×32: id 6 is past the end.
+    for bad in (ok.long(), ok.cpu(), torch.tensor([0, 6], dtype=torch.int32, device=card),
+                torch.tensor([-1], dtype=torch.int32, device=card)):
+        with pytest.raises(ValueError):
+            fc.update_matrices_tiles_cf(p, p, flow, bad, m, fb.TILE)
+    with pytest.raises(ValueError):  # more pixels than a block has threads
+        fc.update_matrices_tiles_cf(p, p, flow, ok, m, (64, 32))
+    with pytest.raises(ValueError):
+        fc.update_flow_cf(m, 15, False, (0, 21, 0, 30), flow)
+    with pytest.raises(ValueError):
+        fc.update_flow_cf(m, 15, False, (0, 10, 0, 30), flow[:1])
+
+
+def test_run_flow_stage_card_matches_cpu(card):
+    """The pipeline's ROI-dispatched flow stage on the card against the
+    CPU; the ROI is small enough that level 0 runs boxed (K4)."""
+    from btcs_pnes_optical_flow_tpu_torch.config import PipelineConfig
+    from btcs_pnes_optical_flow_tpu_torch.dataio.contracts import Skeleton
+    from btcs_pnes_optical_flow_tpu_torch.dataio.video import ArraySource
+    from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_flow_stage
+
+    n, h, w = 17, 128, 256
+    rng = np.random.default_rng(17)
+    yy, xx = np.mgrid[0:h, 0:w]
+    texture = 30 * np.sin(xx / 6.3) * np.cos(yy / 7.1) + rng.normal(0, 4, (h, w))
+    frames = np.stack([np.clip(100 + texture + 120 * np.exp(
+        -(((xx - 125 - 6 * np.sin(i / 2)) / 14) ** 2 + ((yy - 64) / 10) ** 2)), 0, 255)
+        for i in range(n)]).astype(np.uint8)
+    t = np.arange(n) / 30.0
+    ex = np.tile([np.cos(0.3), -np.sin(0.3)], (n, 1))
+    ey = np.tile([np.sin(0.3), np.cos(0.3)], (n, 1))
+    ex[5:7] = np.nan
+    skel = Skeleton(time_all=t, fps=30.0, ex=ex, ey=ey)
+    roi = np.array([[100.0, 50.0], [150.0, 52.0], [148.0, 80.0], [102.0, 78.0]])
+    fc.reset_launch_counts()
+    gpu = run_flow_stage(ArraySource(frames, 30.0), skel, [roi], PipelineConfig(),
+                         chunk_pairs=8, device=card)
+    assert fc.LAUNCHES["update_matrices_tiles"] > 0
+    cpu = run_flow_stage(ArraySource(frames, 30.0), skel, [roi], PipelineConfig(),
+                         chunk_pairs=8, device="cpu")
+    assert np.array_equal(gpu.t_sec, cpu.t_sec) and np.array_equal(gpu.axes_ok, cpu.axes_ok)
+    for name in ("vx", "vy", "mag"):
+        a, c = getattr(gpu, name), getattr(cpu, name)
+        assert np.array_equal(np.isnan(a), np.isnan(c))
+        fin = np.isfinite(c)
+        # ROI means of flows that agree within the path's 1e-3 px bar.
+        np.testing.assert_allclose(a[fin], c[fin], atol=1e-3)
 
 
 # TV-L1: odd sizes, a width past one tile row, B > 1.

@@ -90,8 +90,17 @@ def test_host_helpers_match_jax():
 
 
 def test_port_never_imports_jax():
+    """The port runs where jax, pandas and cv2 are missing: a subprocess
+    that cannot import them runs the flow + PC1 slice, TV-L1 and the
+    pipeline's run_full (no CSV asked for)."""
     code = (
-        "import sys, numpy as np, torch\n"
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'pandas', 'cv2'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import numpy as np, torch\n"
         "from btcs_pnes_optical_flow_tpu_torch.models.flow import roi_body_flow_seq, to_device\n"
         "from btcs_pnes_optical_flow_tpu_torch.models.pc1 import pc1_from_flow\n"
         "from btcs_pnes_optical_flow_tpu_torch.ops import _build, farneback_cuda\n"
@@ -107,7 +116,19 @@ def test_port_never_imports_jax():
         "tv, tc = tvl1_flow(torch.as_tensor(fr[:2]), torch.as_tensor(fr[1:3]),\n"
         "                   TVL1Params(n_warps=2, n_iterations=4), return_clip=True)\n"
         "assert tv.shape == (2, 40, 48, 2) and torch.isfinite(tv).all() and not tc.any()\n"
-        "assert 'jax' not in sys.modules, [m for m in sys.modules if 'jax' in m]\n"
+        "from btcs_pnes_optical_flow_tpu_torch.dataio.contracts import Skeleton\n"
+        "from btcs_pnes_optical_flow_tpu_torch.dataio.video import ArraySource\n"
+        "from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_full\n"
+        "clip = np.repeat(fr, 20, axis=0)\n"
+        "t = np.arange(80) / 30.0\n"
+        "skel = Skeleton(t, 30.0, np.tile([1.0, 0.0], (80, 1)), np.tile([0.0, 1.0], (80, 1)))\n"
+        "roi = np.array([[5.0, 5.0], [40.0, 6.0], [38.0, 30.0], [6.0, 32.0]])\n"
+        "flow, pc1, mets = run_full(ArraySource(clip, 30.0), skel, [roi], chunk_pairs=32,\n"
+        "                           device='cpu')\n"
+        "assert flow.vx.shape == (80, 1) and pc1.shape == (80, 1) and len(mets) == 1\n"
+        "assert np.isfinite(flow.vx[1:]).all() and np.isfinite(pc1[1:]).any()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pandas', 'cv2')]\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
