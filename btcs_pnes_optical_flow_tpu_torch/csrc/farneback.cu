@@ -7,13 +7,12 @@
 //    poly_exp_fused_cf (body _poly_kernel_factory).  Per frame, the separable
 //    (2n+1)-tap correlations with g, x·g and x²·g (replicate borders) and the
 //    inverse-Gram scaling into 5 planes [b_y, b_x, A_yy, A_xx, 2A_xy].
-//    Bound: about 6(2n+1) multiply-adds per pixel against 4 bytes read and 20 written,
-//    so memory traffic bounds it once the taps come from shared memory.  Design:
-//    one block per 32×32 output tile loads the tile plus its n-pixel halo once
-//    into shared memory with clamped indices (the replicate border, no host
-//    padding), runs the vertical pass into 3 shared planes and the horizontal
-//    pass into 6 sums in registers, and writes the 5 planes channel-first in
-//    coalesced rows.  Shared memory grows with n; there is no fixed halo limit.
+//    Bound: memory, 24 bytes per pixel (1 float in, 5 out), against 9(2n+1)
+//    multiplies and as many adds.  Design (see "Window sums" below): 32×64
+//    output tiles, the vertical pass into 3 shared planes and the horizontal
+//    pass into 6 sums per pixel, both from registers with the taps in the
+//    kernel's parameters; each thread stores 4 adjacent pixels of each of the
+//    5 planes as one 16-byte vector.
 //
 // K2 update_matrices_kernel — replaces farneback_pallas.py
 //    update_matrices_banded_cf (body _make_kernel).  Per pixel, the bilinear
@@ -29,18 +28,17 @@
 //
 // K3 update_flow_kernel — replaces farneback_pallas.py update_flow_fused_cf
 //    (body _flow_kernel_factory).  The winsize window average of the 5 M
-//    planes with replicate borders (separable weights and a final scale
-//    passed in: ones and 1/winsize² for the box, the Gaussian taps and 1
-//    otherwise), then the regularized 2×2 solve.  Bound: memory once the
-//    window sums come from shared memory (5 floats in, 2 out per pixel;
-//    10·winsize multiply-adds).  Design:
-//    one block per 16×32 tile loads the 5 planes plus a winsize/2 halo with
-//    clamped indices, takes the separable sums through shared memory and
-//    solves per pixel.  The TPU kernel's fix_borders step repaired its
-//    zero-filled halo; clamped loads make it unnecessary.  Box mode solves a
-//    sub-rectangle of the level only (ROI dispatch): loads clamp to the box,
-//    as the fused TPU level loop's compact subgrid replicates at its edges, and flow
-//    outside the box is not written.
+//    planes with replicate borders (box: a sum times 1/winsize²; Gaussian:
+//    the separable taps), then the regularized 2×2 solve.  Bound: memory,
+//    28 bytes per pixel (5 floats in, 2 out), against 2·winsize adds (box)
+//    per plane and pixel.  Design (see "Window sums" below): 32×64 output
+//    tiles, one M plane at a time; the 5 window sums of a thread's 8 pixels
+//    stay in registers across the planes, then the solve writes the two flow
+//    planes as 16-byte vectors.  The TPU kernel's fix_borders step repaired
+//    its zero-filled halo; clamped loads make it unnecessary.  Box mode
+//    solves a sub-rectangle of the level only (ROI dispatch): loads clamp to
+//    the box, as the fused TPU level loop's compact subgrid replicates at its
+//    edges, and flow outside the box is not written.
 //
 // K4 update_matrices_tiles_kernel — replaces farneback_pallas.py
 //    update_matrices_banded_tiles_cf (body _make_kernel2).  K2's per-pixel
@@ -58,6 +56,32 @@
 //    costs ~20 ns per index; a direct sample has no reach, so one visit
 //    always covers a tile and nothing needs counting.
 //
+// Window sums (K1, K3).  Both kernels are separable window sums followed by
+// per-pixel arithmetic, and both must repeat their plain versions' float32
+// operations in order (ops/cvx.py corr1d: tap 0's product first, then each
+// tap's product added in turn; the vertical pass before the horizontal).
+// A running (incremental) window sum would round differently, so every
+// output's sum is formed from scratch.  What keeps them near memory speed:
+//  - the window radius is a template parameter (K1: n = 1…8; K3: winsize
+//    3…31, box or Gaussian), so every tap loop unrolls and the taps are
+//    operands from the kernel's parameter bank; a box adds without
+//    multiplying (x·1.0f is exact, so the sums are the same bits).  One
+//    instance per kernel takes the radius at run time, with the same
+//    arithmetic in the same order, for the sizes outside the set;
+//  - a tile is 32×64 outputs with a (32+2r)×(64+2r) input halo, 1.3–1.9×
+//    the output's area;
+//  - the vertical pass gives a thread one column of a 16-row strip: it reads
+//    the strip's 16+2r inputs into registers once and forms 16 sums; the
+//    horizontal pass gives a thread 4 adjacent outputs of a row: it reads
+//    4+2r vertical sums once, as 16-byte shared loads;
+//  - blocks are persistent: each walks over (frame, tile) units (K3: tile
+//    and plane) and prefetches the next unit's input with cp.async into the
+//    second of two shared buffers while it computes the current one.  Rows
+//    clamp to the image (or box) per row; columns are copied 16 bytes at a
+//    time when the whole staged row lies inside it, else one float at a
+//    time with clamped addresses (the replicate border).  No index is
+//    divided by a run-time divisor per element.
+//
 // Built with -fmad=false: every product is rounded before its sum, as in the
 // plain PyTorch versions, so a kernel repeats their float32 operations in
 // their order.  The Farnebäck iteration is ill-conditioned at some pixels of
@@ -71,113 +95,325 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kThreadsX = 32;
 constexpr int kThreadsY = 8;
-constexpr int kPolyTH = 32;
-constexpr int kPolyTW = 32;
-constexpr int kFlowTH = 16;
-constexpr int kFlowTW = 32;
 constexpr long long kMaxGridZ = 65535;
 constexpr size_t kDefaultSmem = 48 * 1024;
+
+// K1 and K3: blocks of kThreads threads over kTH × kTW output tiles.
+constexpr int kThreads = 256;
+constexpr int kTH = 32;   // output rows of a tile
+constexpr int kTW = 64;   // output columns of a tile
+constexpr int kRun = 4;   // adjacent outputs of one horizontal-pass run
+constexpr int kRunsPerRow = kTW / kRun;             // 16
+constexpr int kRowsPerPass = kThreads / kRunsPerRow;  // 16: a thread takes 2 rows
+constexpr int kMaxTaps = 32;
 
 __host__ __device__ inline int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-size_t poly_smem_bytes(int n) {
-  const int k = 2 * n + 1;
-  const int in_w = kPolyTW + 2 * n;
-  const size_t floats = 3 * k + 4 + (size_t)(kPolyTH + 2 * n) * in_w + 3 * (size_t)kPolyTH * in_w;
-  return floats * sizeof(float);
+__host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
+
+// The vertical pass gives a thread one column of a strip of rows.  A
+// compile-time-radius instance ("fixed") cuts the tile's rows into 3 strips
+// of 11 (33 rows, one more than the tile) when 3 columns of strips fit the
+// block's threads, else into 2 of 16; the run-time-radius instance into 2.
+__host__ __device__ constexpr int n_strips(int r, bool fixed) {
+  return fixed && 3 * (kTW + 2 * r) <= kThreads ? 3 : 2;
+}
+__host__ __device__ constexpr int strip_rows(int r, bool fixed) {
+  return (kTH + n_strips(r, fixed) - 1) / n_strips(r, fixed);
+}
+__host__ __device__ constexpr int vert_rows(int r, bool fixed) {
+  return n_strips(r, fixed) * strip_rows(r, fixed);
 }
 
-size_t flow_smem_bytes(int winsize) {
-  const int r = winsize / 2;
-  const int in_w = kFlowTW + 2 * r;
-  const size_t floats =
-      winsize + 1 + 5 * (size_t)(kFlowTH + 2 * r) * in_w + 5 * (size_t)kFlowTH * in_w;
-  return floats * sizeof(float);
+// Row stride of a staged input tile of radius r: absolute columns xs …
+// xs + stage_w - 1, with xs = (x0 - r) rounded down to a multiple of 4.
+__host__ __device__ constexpr int stage_w(int r) { return round4(kTW + 2 * r + 3); }
+
+// Row stride of the vertical sums: the last run reads round4(kRun + 2r)
+// columns from kTW - kRun.
+__host__ __device__ constexpr int vsum_w(int r) { return kTW - kRun + round4(kRun + 2 * r); }
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
 }
 
-// consts = [g (K), xg (K), xxg (K), ig11, ig03, ig33, ig55], K = 2n+1.
-__global__ void poly_exp_kernel(const float* __restrict__ img, const float* __restrict__ consts,
-                                float* __restrict__ out, long long batch, int h, int w, int n) {
-  extern __shared__ float smem[];
-  const int k = 2 * n + 1;
-  const int in_h = kPolyTH + 2 * n;
-  const int in_w = kPolyTW + 2 * n;
-  float* s_taps = smem;
-  float* s_in = s_taps + 3 * k + 4;
-  float* s_v = s_in + in_h * in_w;  // 3 planes of kPolyTH × in_w
-  const int vplane = kPolyTH * in_w;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
-  for (int i = tid; i < 3 * k + 4; i += nthreads) s_taps[i] = consts[i];
-  const float* g = s_taps;
-  const float* xg = s_taps + k;
-  const float* xxg = s_taps + 2 * k;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
 
-  const int x0 = blockIdx.x * kPolyTW;
-  const int y0 = blockIdx.y * kPolyTH;
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start the copies of rows ys … ys+rows-1 and columns xs … xs+4·ncols4-1 of
+// one plane into dst (row stride sw), each row and column clamped to
+// [y_lo, y_hi] × [x_lo, x_hi].  16-byte copies when the columns lie inside
+// the range and vec (w % 4 == 0, planes 16-byte aligned), else 4-byte ones.
+__device__ __forceinline__ void stage_rows(float* dst, int sw, const float* __restrict__ plane,
+                                           int w, int ys, int rows, int xs, int ncols4, int y_lo,
+                                           int y_hi, int x_lo, int x_hi, bool vec) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (vec && xs >= x_lo && xs + 4 * ncols4 - 1 <= x_hi) {
+    for (int r = warp; r < rows; r += kThreads / 32) {
+      const float* src = plane + (long long)clampi(ys + r, y_lo, y_hi) * w + xs;
+      float* d = dst + r * sw;
+      for (int q = lane; q < ncols4; q += 32) cp_async16(d + 4 * q, src + 4 * q);
+    }
+  } else {
+    for (int r = warp; r < rows; r += kThreads / 32) {
+      const float* src = plane + (long long)clampi(ys + r, y_lo, y_hi) * w;
+      float* d = dst + r * sw;
+      for (int c = lane; c < 4 * ncols4; c += 32) cp_async4(d + c, src + clampi(xs + c, x_lo, x_hi));
+    }
+  }
+}
+
+// A tile of the kTH × kTW lattice over the box [y_lo, y_hi] × [x_lo, x_hi]
+// of frame b: its first output (y0, x0) and where its staged columns start.
+struct Tile {
+  long long b;
+  int y0, x0, xs, delta;
+};
+
+__device__ __forceinline__ Tile tile_at(long long t, long long per_frame, int n_tx, int y_lo,
+                                        int x_lo, int r) {
+  Tile tl;
+  tl.b = t / per_frame;
+  const int rem = (int)(t - tl.b * per_frame);
+  const int ty = rem / n_tx;
+  tl.y0 = y_lo + ty * kTH;
+  tl.x0 = x_lo + (rem - ty * n_tx) * kTW;
+  tl.xs = (tl.x0 - r) & ~3;  // floor to a multiple of 4, also below 0
+  tl.delta = tl.x0 - r - tl.xs;
+  return tl;
+}
+
+// K1's taps: g, x·g, x²·g for n ≤ 8 and the inverse-Gram factors.
+struct PolyTaps {
+  float g[17], xg[17], xxg[17];
+  float ig11, ig03, ig33, ig55;
+};
+
+// consts = [g (K), xg (K), xxg (K), ig11, ig03, ig33, ig55], K = 2n+1: the
+// run-time instance (N < 0) reads the taps from here, the others from taps.
+template <int N>
+__global__ void __launch_bounds__(kThreads)
+    poly_exp_kernel(const float* __restrict__ img, const PolyTaps taps,
+                    const float* __restrict__ consts, float* __restrict__ out, long long batch,
+                    int h, int w, int n_rt, int vec) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  constexpr int NS = n_strips(N, N >= 0);
+  constexpr int SEG = strip_rows(N, N >= 0);
+  const int n = N >= 0 ? N : n_rt;
+  const int k = 2 * n + 1;
+  const int sw = stage_w(n);
+  const int svw = vsum_w(n);
+  const int in_rows = NS * SEG + 2 * n;
+  const int nc = kTW + 2 * n;  // columns of the vertical pass
+  const int buf_floats = in_rows * sw;
+  float* s_v = smem + 2 * buf_floats;  // 3 planes of NS·SEG × svw
+  const int vplane = NS * SEG * svw;
+  const int n_tx = (w + kTW - 1) / kTW;
+  const long long per_frame = (long long)((h + kTH - 1) / kTH) * n_tx;
+  const long long n_units = batch * per_frame;
   const long long plane = (long long)h * w;
+  const float* cg = consts;
+  const float* cxg = consts + k;
+  const float* cxxg = consts + 2 * k;
 
-  for (long long b = blockIdx.z; b < batch; b += gridDim.z) {
-    const float* src = img + b * plane;
-    __syncthreads();  // taps visible; the previous frame is done with s_in / s_v
-    for (int i = tid; i < in_h * in_w; i += nthreads) {
-      const int r = i / in_w;
-      const int c = i - r * in_w;
-      const int y = clampi(y0 - n + r, 0, h - 1);
-      const int x = clampi(x0 - n + c, 0, w - 1);
-      s_in[i] = src[(long long)y * w + x];
+  long long t = blockIdx.x;
+  if (t >= n_units) return;
+  {
+    const Tile tl = tile_at(t, per_frame, n_tx, 0, 0, n);
+    stage_rows(smem, sw, img + tl.b * plane, w, tl.y0 - n, in_rows, tl.xs,
+               (nc + tl.delta + 3) / 4, 0, h - 1, 0, w - 1, vec);
+    cp_async_commit();
+  }
+  int buf = 0;
+  for (; t < n_units; t += gridDim.x) {
+    const Tile tl = tile_at(t, per_frame, n_tx, 0, 0, n);
+    const long long nt = t + gridDim.x;
+    if (nt < n_units) {  // prefetch the next unit into the other buffer
+      const Tile nx = tile_at(nt, per_frame, n_tx, 0, 0, n);
+      stage_rows(smem + (buf ^ 1) * buf_floats, sw, img + nx.b * plane, w, nx.y0 - n, in_rows,
+                 nx.xs, (nc + nx.delta + 3) / 4, 0, h - 1, 0, w - 1, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    for (int i = tid; i < vplane; i += nthreads) {
-      const int r = i / in_w;
-      const int c = i - r * in_w;
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-      for (int t = 0; t < k; ++t) {
-        const float v = s_in[(r + t) * in_w + c];
-        a0 += g[t] * v;
-        a1 += xg[t] * v;
-        a2 += xxg[t] * v;
+    const float* s_in = smem + buf * buf_floats + tl.delta;
+    // Vertical pass: column c of strip seg, SEG rows, 3 tap sets.
+    for (int it = threadIdx.x; it < NS * nc; it += kThreads) {
+      const int seg = it / nc;
+      const int c = it - seg * nc;
+      const float* col = s_in + seg * SEG * sw + c;
+      float* dst = s_v + seg * SEG * svw + c;
+      if constexpr (N >= 0) {
+        constexpr int K = 2 * N + 1;
+        float v[SEG + 2 * N];
+#pragma unroll
+        for (int i = 0; i < SEG + 2 * N; ++i) v[i] = col[i * sw];
+#pragma unroll
+        for (int j = 0; j < SEG; ++j) {
+          float a0 = taps.g[0] * v[j];
+          float a1 = taps.xg[0] * v[j];
+          float a2 = taps.xxg[0] * v[j];
+#pragma unroll
+          for (int q = 1; q < K; ++q) {
+            a0 = a0 + taps.g[q] * v[j + q];
+            a1 = a1 + taps.xg[q] * v[j + q];
+            a2 = a2 + taps.xxg[q] * v[j + q];
+          }
+          dst[j * svw] = a0;
+          dst[vplane + j * svw] = a1;
+          dst[2 * vplane + j * svw] = a2;
+        }
+      } else {
+        for (int j = 0; j < SEG; ++j) {
+          const float v0 = col[j * sw];
+          float a0 = __ldg(cg) * v0;
+          float a1 = __ldg(cxg) * v0;
+          float a2 = __ldg(cxxg) * v0;
+          for (int q = 1; q < k; ++q) {
+            const float vq = col[(j + q) * sw];
+            a0 = a0 + __ldg(cg + q) * vq;
+            a1 = a1 + __ldg(cxg + q) * vq;
+            a2 = a2 + __ldg(cxxg + q) * vq;
+          }
+          dst[j * svw] = a0;
+          dst[vplane + j * svw] = a1;
+          dst[2 * vplane + j * svw] = a2;
+        }
       }
-      s_v[i] = a0;
-      s_v[vplane + i] = a1;
-      s_v[2 * vplane + i] = a2;
     }
     __syncthreads();
-    const float ig11 = s_taps[3 * k];
-    const float ig03 = s_taps[3 * k + 1];
-    const float ig33 = s_taps[3 * k + 2];
-    const float ig55 = s_taps[3 * k + 3];
-    for (int i = tid; i < kPolyTH * kPolyTW; i += nthreads) {
-      const int r = i / kPolyTW;
-      const int c = i - r * kPolyTW;
-      const int y = y0 + r;
-      const int x = x0 + c;
-      if (y >= h || x >= w) continue;
-      const float* v0 = s_v + r * in_w + c;  // vertical g
-      const float* v1 = v0 + vplane;         // vertical x·g
-      const float* v2 = v1 + vplane;         // vertical x²·g
-      float b1 = 0.f, b2 = 0.f, b3 = 0.f, b4 = 0.f, b5 = 0.f, b6 = 0.f;
-      for (int t = 0; t < k; ++t) {
-        b1 += g[t] * v0[t];
-        b2 += xg[t] * v0[t];
-        b4 += xxg[t] * v0[t];
-        b3 += g[t] * v1[t];
-        b6 += xg[t] * v1[t];
-        b5 += g[t] * v2[t];
+    // Horizontal pass: 4 adjacent outputs of rows j0 and j0 + 16.
+    const int q4 = (threadIdx.x & (kRunsPerRow - 1)) * kRun;
+    const int j0 = threadIdx.x / kRunsPerRow;
+    const float ig11 = N >= 0 ? taps.ig11 : __ldg(consts + 3 * k);
+    const float ig03 = N >= 0 ? taps.ig03 : __ldg(consts + 3 * k + 1);
+    const float ig33 = N >= 0 ? taps.ig33 : __ldg(consts + 3 * k + 2);
+    const float ig55 = N >= 0 ? taps.ig55 : __ldg(consts + 3 * k + 3);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int j = j0 + rr * kRowsPerPass;
+      const int y = tl.y0 + j;
+      const float* row = s_v + j * svw + q4;
+      // b1 = g⊛v0, b2 = xg⊛v0, b4 = xxg⊛v0, b3 = g⊛v1, b6 = xg⊛v1, b5 = g⊛v2
+      float b1[kRun], b2[kRun], b3[kRun], b4[kRun], b5[kRun], b6[kRun];
+      if constexpr (N >= 0) {
+        constexpr int K = 2 * N + 1;
+        constexpr int NV = round4(kRun + 2 * N);
+        float v[NV];
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+#pragma unroll
+          for (int i = 0; i < NV / 4; ++i) {
+            const float4 f = *reinterpret_cast<const float4*>(row + p * vplane + 4 * i);
+            v[4 * i] = f.x;
+            v[4 * i + 1] = f.y;
+            v[4 * i + 2] = f.z;
+            v[4 * i + 3] = f.w;
+          }
+#pragma unroll
+          for (int o = 0; o < kRun; ++o) {
+            if (p == 0) {
+              float a = taps.g[0] * v[o], b = taps.xg[0] * v[o], c = taps.xxg[0] * v[o];
+#pragma unroll
+              for (int q = 1; q < K; ++q) {
+                a = a + taps.g[q] * v[o + q];
+                b = b + taps.xg[q] * v[o + q];
+                c = c + taps.xxg[q] * v[o + q];
+              }
+              b1[o] = a;
+              b2[o] = b;
+              b4[o] = c;
+            } else if (p == 1) {
+              float a = taps.g[0] * v[o], b = taps.xg[0] * v[o];
+#pragma unroll
+              for (int q = 1; q < K; ++q) {
+                a = a + taps.g[q] * v[o + q];
+                b = b + taps.xg[q] * v[o + q];
+              }
+              b3[o] = a;
+              b6[o] = b;
+            } else {
+              float a = taps.g[0] * v[o];
+#pragma unroll
+              for (int q = 1; q < K; ++q) a = a + taps.g[q] * v[o + q];
+              b5[o] = a;
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int o = 0; o < kRun; ++o) {
+          const float* r0 = row + o;
+          const float* r1 = r0 + vplane;
+          const float* r2 = r1 + vplane;
+          float a = __ldg(cg) * r0[0], b = __ldg(cxg) * r0[0], c = __ldg(cxxg) * r0[0];
+          float d = __ldg(cg) * r1[0], e = __ldg(cxg) * r1[0];
+          float f = __ldg(cg) * r2[0];
+          for (int q = 1; q < k; ++q) {
+            a = a + __ldg(cg + q) * r0[q];
+            b = b + __ldg(cxg + q) * r0[q];
+            c = c + __ldg(cxxg + q) * r0[q];
+            d = d + __ldg(cg + q) * r1[q];
+            e = e + __ldg(cxg + q) * r1[q];
+            f = f + __ldg(cg + q) * r2[q];
+          }
+          b1[o] = a;
+          b2[o] = b;
+          b4[o] = c;
+          b3[o] = d;
+          b6[o] = e;
+          b5[o] = f;
+        }
       }
-      float* o = out + b * 5 * plane + (long long)y * w + x;
-      o[0] = b3 * ig11;
-      o[plane] = b2 * ig11;
-      o[2 * plane] = b1 * ig03 + b5 * ig33;
-      o[3 * plane] = b1 * ig03 + b4 * ig33;
-      o[4 * plane] = b6 * ig55;
+      if (y >= h) continue;
+      float res[5][kRun];
+#pragma unroll
+      for (int o = 0; o < kRun; ++o) {
+        res[0][o] = b3[o] * ig11;
+        res[1][o] = b2[o] * ig11;
+        res[2][o] = b1[o] * ig03 + b5[o] * ig33;
+        res[3][o] = b1[o] * ig03 + b4[o] * ig33;
+        res[4][o] = b6[o] * ig55;
+      }
+      const int x = tl.x0 + q4;
+      float* o0 = out + tl.b * 5 * plane + (long long)y * w + x;
+      if (vec && x + kRun <= w) {
+#pragma unroll
+        for (int ch = 0; ch < 5; ++ch)
+          *reinterpret_cast<float4*>(o0 + ch * plane) =
+              make_float4(res[ch][0], res[ch][1], res[ch][2], res[ch][3]);
+      } else {
+#pragma unroll
+        for (int o = 0; o < kRun; ++o) {
+          if (x + o >= w) break;
+#pragma unroll
+          for (int ch = 0; ch < 5; ++ch) o0[ch * plane + o] = res[ch][o];
+        }
+      }
     }
+    buf ^= 1;
   }
 }
 
@@ -271,76 +507,182 @@ __global__ void update_matrices_tiles_kernel(const float* __restrict__ r0,
   if (y < h && x < w) matrices_pixel(r0, r1, flow, rim, m, b, y, x, h, w);
 }
 
-// weights = [w (winsize), post-scale].  The box [y_lo, y_hi] × [x_lo, x_hi]
+// K3's taps: the window's separable weights (winsize ≤ 31) and, for the
+// box, the final scale 1/winsize².
+struct FlowTaps {
+  float w[kMaxTaps - 1];
+  float scale;
+};
+
+// weights = [w (winsize), scale]: the run-time instance (R < 0) reads the
+// taps from here, the others from taps.  The box [y_lo, y_hi] × [x_lo, x_hi]
 // (inclusive) is the image the kernel solves: M is read clamped to it, as
 // replicate borders at its edges, and flow is written only inside it.  The
 // whole level is the box (0, h-1, 0, w-1).
-__global__ void update_flow_kernel(const float* __restrict__ m, const float* __restrict__ weights,
-                                   float* __restrict__ out, long long batch, int h, int w,
-                                   int winsize, int y_lo, int y_hi, int x_lo, int x_hi) {
-  extern __shared__ float smem[];
-  const int rad = winsize / 2;
-  const int in_h = kFlowTH + 2 * rad;
-  const int in_w = kFlowTW + 2 * rad;
-  const int in_plane = in_h * in_w;
-  const int vplane = kFlowTH * in_w;
-  float* s_w = smem;
-  float* s_in = s_w + winsize + 1;   // 5 planes of in_h × in_w
-  float* s_v = s_in + 5 * in_plane;  // 5 planes of kFlowTH × in_w
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
-  for (int i = tid; i <= winsize; i += nthreads) s_w[i] = weights[i];
-
-  const int x0 = x_lo + blockIdx.x * kFlowTW;
-  const int y0 = y_lo + blockIdx.y * kFlowTH;
+// At most 85 registers, so that 3 blocks of 256 threads share an SM: the
+// third block's vertical and horizontal passes fill the other two's
+// barrier waits.
+template <int R, bool kBox>
+__global__ void __launch_bounds__(kThreads, 3)
+    update_flow_kernel(const float* __restrict__ m, const FlowTaps taps,
+                       const float* __restrict__ weights, float* __restrict__ out,
+                       long long batch, int h, int w, int r_rt, int y_lo, int y_hi, int x_lo,
+                       int x_hi, int vec) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  constexpr int NS = n_strips(R, R >= 0);
+  constexpr int SEG = strip_rows(R, R >= 0);
+  const int r = R >= 0 ? R : r_rt;
+  const int k = 2 * r + 1;
+  const int sw = stage_w(r);
+  const int svw = vsum_w(r);
+  const int in_rows = NS * SEG + 2 * r;
+  const int nc = kTW + 2 * r;  // columns of the vertical pass
+  const int buf_floats = in_rows * sw;
+  float* s_v = smem + 2 * buf_floats;  // NS·SEG × svw vertical sums of one plane
+  const int n_tx = (x_hi - x_lo + kTW) / kTW;
+  const long long per_frame = (long long)((y_hi - y_lo + kTH) / kTH) * n_tx;
+  const long long n_tiles = batch * per_frame;
   const long long plane = (long long)h * w;
+  const float scale = R >= 0 ? taps.scale : __ldg(weights + k);
 
-  for (long long b = blockIdx.z; b < batch; b += gridDim.z) {
-    const float* src = m + b * 5 * plane;
-    __syncthreads();
-    for (int i = tid; i < 5 * in_plane; i += nthreads) {
-      const int ch = i / in_plane;
-      const int rem = i - ch * in_plane;
-      const int r = rem / in_w;
-      const int c = rem - r * in_w;
-      const int y = clampi(y0 - rad + r, y_lo, y_hi);
-      const int x = clampi(x0 - rad + c, x_lo, x_hi);
-      s_in[i] = src[ch * plane + (long long)y * w + x];
-    }
-    __syncthreads();
-    for (int i = tid; i < vplane; i += nthreads) {
-      const int r = i / in_w;
-      const int c = i - r * in_w;
+  long long t = blockIdx.x;
+  if (t >= n_tiles) return;
+  {
+    const Tile tl = tile_at(t, per_frame, n_tx, y_lo, x_lo, r);
+    stage_rows(smem, sw, m + tl.b * 5 * plane, w, tl.y0 - r, in_rows, tl.xs,
+               (nc + tl.delta + 3) / 4, y_lo, y_hi, x_lo, x_hi, vec);
+    cp_async_commit();
+  }
+  const int q4 = (threadIdx.x & (kRunsPerRow - 1)) * kRun;
+  const int j0 = threadIdx.x / kRunsPerRow;
+  int buf = 0;
+  for (; t < n_tiles; t += gridDim.x) {
+    const Tile tl = tile_at(t, per_frame, n_tx, y_lo, x_lo, r);
+    float sum[5][2][kRun];  // the window sums of this thread's 8 pixels
 #pragma unroll
-      for (int ch = 0; ch < 5; ++ch) {
-        const float* col = s_in + ch * in_plane + r * in_w + c;
-        float acc = 0.f;
-        for (int t = 0; t < winsize; ++t) acc += s_w[t] * col[t * in_w];
-        s_v[ch * vplane + i] = acc;
+    for (int ch = 0; ch < 5; ++ch) {
+      // Prefetch the next unit (the next plane, else plane 0 of the next tile).
+      const long long nt = ch < 4 ? t : t + gridDim.x;
+      if (nt < n_tiles) {
+        const Tile nx = ch < 4 ? tl : tile_at(nt, per_frame, n_tx, y_lo, x_lo, r);
+        stage_rows(smem + (buf ^ 1) * buf_floats, sw, m + (nx.b * 5 + (ch < 4 ? ch + 1 : 0)) * plane,
+                   w, nx.y0 - r, in_rows, nx.xs, (nc + nx.delta + 3) / 4, y_lo, y_hi, x_lo, x_hi,
+                   vec);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
       }
-    }
-    __syncthreads();
-    for (int i = tid; i < kFlowTH * kFlowTW; i += nthreads) {
-      const int r = i / kFlowTW;
-      const int c = i - r * kFlowTW;
-      const int y = y0 + r;
-      const int x = x0 + c;
-      if (y > y_hi || x > x_hi) continue;
-      float sum[5];
+      __syncthreads();
+      const float* s_in = smem + buf * buf_floats + tl.delta;
+      // Vertical pass: column c of strip seg, SEG rows.
+      for (int it = threadIdx.x; it < NS * nc; it += kThreads) {
+        const int seg = it / nc;
+        const int c = it - seg * nc;
+        const float* col = s_in + seg * SEG * sw + c;
+        float* dst = s_v + seg * SEG * svw + c;
+        if constexpr (R >= 0) {
+          float v[SEG + 2 * R];
 #pragma unroll
-      for (int ch = 0; ch < 5; ++ch) {
-        const float* row = s_v + ch * vplane + r * in_w + c;
-        float acc = 0.f;
-        for (int t = 0; t < winsize; ++t) acc += s_w[t] * row[t];
-        sum[ch] = acc * s_w[winsize];
+          for (int i = 0; i < SEG + 2 * R; ++i) v[i] = col[i * sw];
+#pragma unroll
+          for (int j = 0; j < SEG; ++j) {
+            float a = kBox ? v[j] : taps.w[0] * v[j];
+#pragma unroll
+            for (int q = 1; q < 2 * R + 1; ++q) a = kBox ? a + v[j + q] : a + taps.w[q] * v[j + q];
+            dst[j * svw] = a;
+          }
+        } else {
+          for (int j = 0; j < SEG; ++j) {
+            float a = kBox ? col[j * sw] : __ldg(weights) * col[j * sw];
+            for (int q = 1; q < k; ++q)
+              a = kBox ? a + col[(j + q) * sw] : a + __ldg(weights + q) * col[(j + q) * sw];
+            dst[j * svw] = a;
+          }
+        }
       }
-      const float g11 = sum[0], g12 = sum[1], g22 = sum[2], h1 = sum[3], h2 = sum[4];
-      const float idet = 1.f / (g11 * g22 - g12 * g12 + 1e-3f);
-      float* o = out + b * 2 * plane + (long long)y * w + x;
-      o[0] = (g11 * h2 - g12 * h1) * idet;
-      o[plane] = (g22 * h1 - g12 * h2) * idet;
+      __syncthreads();
+      // Horizontal pass: 4 adjacent outputs of rows j0 and j0 + 16.
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const float* row = s_v + (j0 + rr * kRowsPerPass) * svw + q4;
+        if constexpr (R >= 0) {
+          constexpr int NV = round4(kRun + 2 * R);
+          float v[NV];
+#pragma unroll
+          for (int i = 0; i < NV / 4; ++i) {
+            const float4 f = *reinterpret_cast<const float4*>(row + 4 * i);
+            v[4 * i] = f.x;
+            v[4 * i + 1] = f.y;
+            v[4 * i + 2] = f.z;
+            v[4 * i + 3] = f.w;
+          }
+#pragma unroll
+          for (int o = 0; o < kRun; ++o) {
+            float a = kBox ? v[o] : taps.w[0] * v[o];
+#pragma unroll
+            for (int q = 1; q < 2 * R + 1; ++q) a = kBox ? a + v[o + q] : a + taps.w[q] * v[o + q];
+            sum[ch][rr][o] = kBox ? a * scale : a;
+          }
+        } else {
+#pragma unroll
+          for (int o = 0; o < kRun; ++o) {
+            float a = kBox ? row[o] : __ldg(weights) * row[o];
+            for (int q = 1; q < k; ++q)
+              a = kBox ? a + row[o + q] : a + __ldg(weights + q) * row[o + q];
+            sum[ch][rr][o] = kBox ? a * scale : a;
+          }
+        }
+      }
+      buf ^= 1;
+    }
+    // The regularized 2×2 solve and the two flow planes.
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int y = tl.y0 + j0 + rr * kRowsPerPass;
+      if (y > y_hi) continue;
+      float fx[kRun], fy[kRun];
+#pragma unroll
+      for (int o = 0; o < kRun; ++o) {
+        const float g11 = sum[0][rr][o], g12 = sum[1][rr][o], g22 = sum[2][rr][o];
+        const float h1 = sum[3][rr][o], h2 = sum[4][rr][o];
+        const float idet = 1.f / (g11 * g22 - g12 * g12 + 1e-3f);
+        fx[o] = (g11 * h2 - g12 * h1) * idet;
+        fy[o] = (g22 * h1 - g12 * h2) * idet;
+      }
+      const int x = tl.x0 + q4;
+      float* o0 = out + tl.b * 2 * plane + (long long)y * w + x;
+      if (vec && (x & 3) == 0 && x + kRun - 1 <= x_hi) {
+        *reinterpret_cast<float4*>(o0) = make_float4(fx[0], fx[1], fx[2], fx[3]);
+        *reinterpret_cast<float4*>(o0 + plane) = make_float4(fy[0], fy[1], fy[2], fy[3]);
+      } else {
+#pragma unroll
+        for (int o = 0; o < kRun; ++o) {
+          if (x + o > x_hi) break;
+          o0[o] = fx[o];
+          o0[plane + o] = fy[o];
+        }
+      }
     }
   }
+}
+
+// K1 has compile-time instances for n = 1…8, K3 for winsize 3…31.
+bool poly_fixed(int n) { return n >= 1 && n <= 8; }
+bool flow_fixed(int r) { return r >= 1 && r <= 15; }
+
+size_t poly_smem_bytes(int n) {
+  const int rows = vert_rows(n, poly_fixed(n));
+  const size_t floats = 2 * (size_t)(rows + 2 * n) * stage_w(n) + 3 * (size_t)rows * vsum_w(n);
+  return floats * sizeof(float);
+}
+
+size_t flow_smem_bytes(int winsize) {
+  const int r = winsize / 2;
+  const int rows = vert_rows(r, flow_fixed(r));
+  const size_t floats = 2 * (size_t)(rows + 2 * r) * stage_w(r) + (size_t)rows * vsum_w(r);
+  return floats * sizeof(float);
 }
 
 cudaError_t set_smem(const void* kernel, size_t bytes) {
@@ -349,6 +691,77 @@ cudaError_t set_smem(const void* kernel, size_t bytes) {
 }
 
 unsigned grid_z(long long batch) { return (unsigned)(batch < kMaxGridZ ? batch : kMaxGridZ); }
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// Launch a persistent kernel of kThreads-thread blocks over n_units units:
+// as many blocks as fit on the card at once, and no more than the units.
+template <typename... KernelArgs, typename... Args>
+cudaError_t launch_persistent(void (*kernel)(KernelArgs...), size_t smem, long long n_units,
+                              cudaStream_t stream, Args... args) {
+  cudaError_t err = set_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long fit = (long long)per_sm * sms;
+  const unsigned grid = (unsigned)(n_units < fit ? n_units : fit);
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+template <int N>
+cudaError_t launch_poly(const float* img, const PolyTaps& taps, const float* consts, float* out,
+                        long long batch, int h, int w, int n, cudaStream_t stream) {
+  const long long units = batch * ((h + kTH - 1) / kTH) * (long long)((w + kTW - 1) / kTW);
+  const int vec = w % 4 == 0 && aligned16(img) && aligned16(out);
+  return launch_persistent(poly_exp_kernel<N>, poly_smem_bytes(n), units, stream, img, taps,
+                           consts, out, batch, h, w, n, vec);
+}
+
+template <int R, bool kBox>
+cudaError_t launch_flow(const float* m, const FlowTaps& taps, const float* weights, float* out,
+                        long long batch, int h, int w, int r, int y_lo, int y_hi, int x_lo,
+                        int x_hi, cudaStream_t stream) {
+  const long long units = batch * ((y_hi - y_lo + kTH) / kTH) * (long long)((x_hi - x_lo + kTW) / kTW);
+  const int vec = w % 4 == 0 && aligned16(m) && aligned16(out);
+  return launch_persistent(update_flow_kernel<R, kBox>, flow_smem_bytes(2 * r + 1), units, stream,
+                           m, taps, weights, out, batch, h, w, r, y_lo, y_hi, x_lo, x_hi, vec);
+}
+
+template <bool kBox>
+cudaError_t dispatch_flow(const float* m, const FlowTaps& taps, const float* weights, float* out,
+                          long long batch, int h, int w, int r, int y_lo, int y_hi, int x_lo,
+                          int x_hi, cudaStream_t stream) {
+#define FB_FLOW_CASE(RR) \
+  case RR:               \
+    return launch_flow<RR, kBox>(m, taps, weights, out, batch, h, w, r, y_lo, y_hi, x_lo, x_hi, stream);
+  switch (r) {
+    FB_FLOW_CASE(1)
+    FB_FLOW_CASE(2)
+    FB_FLOW_CASE(3)
+    FB_FLOW_CASE(4)
+    FB_FLOW_CASE(5)
+    FB_FLOW_CASE(6)
+    FB_FLOW_CASE(7)
+    FB_FLOW_CASE(8)
+    FB_FLOW_CASE(9)
+    FB_FLOW_CASE(10)
+    FB_FLOW_CASE(11)
+    FB_FLOW_CASE(12)
+    FB_FLOW_CASE(13)
+    FB_FLOW_CASE(14)
+    FB_FLOW_CASE(15)
+    default:
+      return launch_flow<-1, kBox>(m, taps, weights, out, batch, h, w, r, y_lo, y_hi, x_lo, x_hi,
+                                   stream);
+  }
+#undef FB_FLOW_CASE
+}
 
 }  // namespace
 
@@ -360,15 +773,41 @@ int fb_update_flow_smem_bytes(int winsize) { return (int)flow_smem_bytes(winsize
 
 const char* fb_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-int fb_poly_exp(const float* img, const float* consts, float* out, long long batch, int h, int w,
-                int n, void* stream) {
-  const size_t smem = poly_smem_bytes(n);
-  cudaError_t err = set_smem((const void*)poly_exp_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 block(kThreadsX, kThreadsY);
-  const dim3 grid((w + kPolyTW - 1) / kPolyTW, (h + kPolyTH - 1) / kPolyTH, grid_z(batch));
-  poly_exp_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(img, consts, out, batch, h, w, n);
-  return (int)cudaGetLastError();
+// consts_host / consts_dev: [g (K), xg (K), xxg (K), ig11, ig03, ig33, ig55],
+// K = 2n+1, on the host (for the taps passed as kernel parameters) and on
+// the device (read by the run-time-radius instance).
+int fb_poly_exp(const float* img, const float* consts_host, const float* consts_dev, float* out,
+                long long batch, int h, int w, int n, void* stream) {
+  const int k = 2 * n + 1;
+  PolyTaps taps = {};
+  if (n <= 8) {
+    for (int i = 0; i < k; ++i) {
+      taps.g[i] = consts_host[i];
+      taps.xg[i] = consts_host[k + i];
+      taps.xxg[i] = consts_host[2 * k + i];
+    }
+  }
+  taps.ig11 = consts_host[3 * k];
+  taps.ig03 = consts_host[3 * k + 1];
+  taps.ig33 = consts_host[3 * k + 2];
+  taps.ig55 = consts_host[3 * k + 3];
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (n) {
+#define FB_POLY_CASE(NN) \
+  case NN:               \
+    return (int)launch_poly<NN>(img, taps, consts_dev, out, batch, h, w, n, s);
+    FB_POLY_CASE(1)
+    FB_POLY_CASE(2)
+    FB_POLY_CASE(3)
+    FB_POLY_CASE(4)
+    FB_POLY_CASE(5)
+    FB_POLY_CASE(6)
+    FB_POLY_CASE(7)
+    FB_POLY_CASE(8)
+#undef FB_POLY_CASE
+    default:
+      return (int)launch_poly<-1>(img, taps, consts_dev, out, batch, h, w, n, s);
+  }
 }
 
 int fb_update_matrices(const float* r0, const float* r1, const float* flow, const float* rim,
@@ -381,18 +820,21 @@ int fb_update_matrices(const float* r0, const float* r1, const float* flow, cons
   return (int)cudaGetLastError();
 }
 
-int fb_update_flow(const float* m, const float* weights, float* out, long long batch, int h,
-                   int w, int winsize, int y_lo, int y_hi, int x_lo, int x_hi, void* stream) {
-  const size_t smem = flow_smem_bytes(winsize);
-  cudaError_t err = set_smem((const void*)update_flow_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 block(kThreadsX, kThreadsY);
-  const int bh = y_hi - y_lo + 1;
-  const int bw = x_hi - x_lo + 1;
-  const dim3 grid((bw + kFlowTW - 1) / kFlowTW, (bh + kFlowTH - 1) / kFlowTH, grid_z(batch));
-  update_flow_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(m, weights, out, batch, h, w,
-                                                                  winsize, y_lo, y_hi, x_lo, x_hi);
-  return (int)cudaGetLastError();
+// weights_host / weights_dev: [w (winsize), scale] on the host and the device.
+int fb_update_flow(const float* m, const float* weights_host, const float* weights_dev, float* out,
+                   long long batch, int h, int w, int winsize, int gaussian, int y_lo, int y_hi,
+                   int x_lo, int x_hi, void* stream) {
+  FlowTaps taps = {};
+  if (winsize < kMaxTaps)
+    for (int i = 0; i < winsize; ++i) taps.w[i] = weights_host[i];
+  taps.scale = weights_host[winsize];
+  const int r = winsize / 2;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (gaussian)
+    return (int)dispatch_flow<false>(m, taps, weights_dev, out, batch, h, w, r, y_lo, y_hi, x_lo,
+                                     x_hi, s);
+  return (int)dispatch_flow<true>(m, taps, weights_dev, out, batch, h, w, r, y_lo, y_hi, x_lo,
+                                  x_hi, s);
 }
 
 int fb_update_matrices_tiles(const float* r0, const float* r1, const float* flow,

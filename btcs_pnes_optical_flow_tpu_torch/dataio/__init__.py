@@ -1,8 +1,8 @@
-"""Host-side IO: video decode + prefetch (``video``) and the body-axis
-``Skeleton`` of the reference's file contracts (``contracts``).
+"""Host-side IO: video decode + prefetch (``video``, ``codecs``), the
+reference's file contracts with pandas-free CSV writers (``contracts``)
+and chunk checkpoints (``checkpoint``).
 
-The JAX package's jax-free readers (``VideoSource``, ``Y4MSource``,
-``NpyGraySource``, ``ChunkPrefetcher``, ``codecs``, ``checkpoint``) are
-imported, not copied.  This package neither needs pandas nor cv2 unless
-a CSV or an OpenCV decode is asked for.
+Each module is the port's own copy of its JAX-package namesake; none
+imports the JAX package, pandas or cv2 unless an OpenCV decode is asked
+for.
 """

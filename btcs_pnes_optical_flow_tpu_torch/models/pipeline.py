@@ -9,8 +9,8 @@ The JAX package's escalation ladder (``escalate_clipped_pairs``) has no
 counterpart: the port's warp samples directly and never clips, so
 ``run_flow_stage`` raises if a clip count is ever non-zero.  The
 per-chunk log line keeps its escalation counters, which stay 0.  CSVs
-are written through the JAX package's ``dataio/contracts.py`` (pandas),
-imported only when a CSV is asked for.
+are written by the port's pandas-free ``dataio/contracts.py`` writers,
+byte for byte what the JAX package's pandas writers give.
 """
 
 from __future__ import annotations
@@ -24,6 +24,8 @@ import numpy as np
 import torch
 
 from btcs_pnes_optical_flow_tpu_torch.config import PipelineConfig
+from btcs_pnes_optical_flow_tpu_torch.dataio import contracts
+from btcs_pnes_optical_flow_tpu_torch.dataio.checkpoint import ChunkStore
 from btcs_pnes_optical_flow_tpu_torch.dataio.contracts import Skeleton
 from btcs_pnes_optical_flow_tpu_torch.dataio.video import (
     ChunkPrefetcher,
@@ -51,15 +53,6 @@ class FlowStageResult:
     vx: np.ndarray         # (T, R)
     vy: np.ndarray         # (T, R)
     mag: np.ndarray        # (T, R)
-
-    def to_frame(self, roi: int = 0):
-        """flow.csv's table for one ROI (a pandas DataFrame)."""
-        from btcs_pnes_optical_flow_tpu.dataio import contracts
-
-        return contracts.flow_frame(
-            self.frame, self.t_sec, self.skel_idx, self.axes_ok.astype(int),
-            self.vx[:, roi], self.vy[:, roi], self.mag[:, roi],
-        )
 
 
 def run_flow_stage(
@@ -94,8 +87,6 @@ def run_flow_stage(
 
     store = None
     if checkpoint_dir is not None:
-        from btcs_pnes_optical_flow_tpu.dataio.checkpoint import ChunkStore
-
         store = ChunkStore(
             checkpoint_dir,
             meta={"chunk_pairs": chunk_pairs, "n_roi": n_roi, "h": h, "w": w},
@@ -207,7 +198,9 @@ def run_flow_stage(
         mag=np.concatenate([nanrow] + feats_mag),
     )
     if out_csv is not None:
-        res.to_frame(0).to_csv(out_csv, index=False)
+        contracts.write_flow_csv(out_csv, res.frame, res.t_sec, res.skel_idx,
+                                 res.axes_ok.astype(int), res.vx[:, 0], res.vy[:, 0],
+                                 res.mag[:, 0])
     return res
 
 
@@ -224,9 +217,7 @@ def run_pc1_stage(
     vy = torch.as_tensor(np.ascontiguousarray(flow.vy.T), dtype=torch.float32, device=device)
     pc1 = pc1_model.pc1_from_flow_batch(vx, vy, config.pca, engine=engine).cpu().numpy().T
     if out_csv is not None:
-        from btcs_pnes_optical_flow_tpu.dataio import contracts
-
-        contracts.pc1_frame(flow.t_sec, pc1[:, 0]).to_csv(out_csv, index=False)
+        contracts.write_pc1_csv(out_csv, flow.t_sec, pc1[:, 0])
     return pc1
 
 
@@ -245,9 +236,7 @@ def run_metrics_stage(
                                      device=device)
            for r in range(pc1.shape[1])]
     if out_csv is not None:
-        from btcs_pnes_optical_flow_tpu.dataio import contracts
-
-        contracts.summary_frame(out[0], config.metrics.window_sec).to_csv(out_csv, index=False)
+        contracts.write_summary_csv(out_csv, out[0], config.metrics.window_sec)
     return out
 
 

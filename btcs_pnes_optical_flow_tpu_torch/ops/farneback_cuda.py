@@ -45,9 +45,9 @@ def library():
     """The built kernel library with its C signatures declared."""
     lib = _build.load("farneback.cu").lib
     sigs = {
-        "fb_poly_exp": [_P, _P, _P, _LL, _I, _I, _I, _P],
+        "fb_poly_exp": [_P, _P, _P, _P, _LL, _I, _I, _I, _P],
         "fb_update_matrices": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
-        "fb_update_flow": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _P],
+        "fb_update_flow": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P],
         "fb_update_matrices_tiles": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
         "fb_poly_exp_smem_bytes": [_I],
         "fb_update_flow_smem_bytes": [_I],
@@ -80,11 +80,12 @@ def _launch(fn, *args) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _poly_consts(n: int, sigma: float, device: torch.device) -> torch.Tensor:
-    """[g, xg, xxg, ig11, ig03, ig33, ig55] as float32 on the device."""
+def _poly_consts(n: int, sigma: float, device: torch.device):
+    """[g, xg, xxg, ig11, ig03, ig33, ig55] as float32 on the host (the
+    kernel's parameters) and on the device (the run-time-radius instance)."""
     g, xg, xxg, igs = _plain._poly_exp_tables(n, sigma)
     host = np.concatenate([g, xg, xxg, np.asarray(igs)]).astype(np.float32)
-    return torch.as_tensor(host, device=device)
+    return host, torch.as_tensor(host, device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -96,14 +97,16 @@ def _rim_scale(h: int, w: int, device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _window_weights(winsize: int, gaussian_win: bool, device: torch.device) -> torch.Tensor:
+def _window_weights(winsize: int, gaussian_win: bool, device: torch.device):
     """[separable taps (winsize), final scale] as the plain version applies
-    them: ones and 1/winsize² for the box, the Gaussian taps and 1."""
+    them: ones and 1/winsize² for the box, the Gaussian taps and 1; on the
+    host (the kernel's parameters) and on the device."""
     if gaussian_win:
         w = np.append(_plain._gaussian_win_kernel(winsize), 1.0)
     else:
         w = np.append(np.ones(winsize), 1.0 / (winsize * winsize))
-    return torch.as_tensor(w.astype(np.float32), device=device)
+    host = w.astype(np.float32)
+    return host, torch.as_tensor(host, device=device)
 
 
 def poly_exp_cf(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
@@ -118,9 +121,10 @@ def poly_exp_cf(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
         raise ValueError(f"poly_n={n} needs {smem} bytes of shared memory per block")
     out = torch.empty((b, 5, h, w), dtype=torch.float32, device=img.device)
     if b:
-        consts = _poly_consts(n, float(sigma), img.device)
+        host, consts = _poly_consts(n, float(sigma), img.device)
         LAUNCHES["poly_exp"] += 1
-        _launch(lib.fb_poly_exp, img.data_ptr(), consts.data_ptr(), out.data_ptr(), b, h, w, n)
+        _launch(lib.fb_poly_exp, img.data_ptr(), host.ctypes.data, consts.data_ptr(),
+                out.data_ptr(), b, h, w, n)
     return out
 
 
@@ -175,10 +179,10 @@ def update_flow_cf(m: torch.Tensor, winsize: int, gaussian_win: bool,
         if out.device != m.device:
             raise ValueError("m and out must be on one device")
     if b:
-        weights = _window_weights(winsize, bool(gaussian_win), m.device)
+        host, weights = _window_weights(winsize, bool(gaussian_win), m.device)
         LAUNCHES["update_flow"] += 1
-        _launch(lib.fb_update_flow, m.data_ptr(), weights.data_ptr(), out.data_ptr(),
-                b, h, w, winsize, y0, y1 - 1, x0, x1 - 1)
+        _launch(lib.fb_update_flow, m.data_ptr(), host.ctypes.data, weights.data_ptr(),
+                out.data_ptr(), b, h, w, winsize, int(bool(gaussian_win)), y0, y1 - 1, x0, x1 - 1)
     return out
 
 

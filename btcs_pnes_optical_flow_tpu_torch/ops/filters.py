@@ -23,7 +23,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from btcs_pnes_optical_flow_tpu.ops import design
+from btcs_pnes_optical_flow_tpu_torch.ops import design
 
 
 def _section_scan(b0, b1, b2, a1, a2, x: torch.Tensor, zi: torch.Tensor):

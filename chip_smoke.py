@@ -14,7 +14,10 @@ Phases (any failed check raises, so the exit code is non-zero):
              update_matrices_tiles (over the bench ROI's level-0 box and over
              a seeded random half of all tiles) against their plain PyTorch
              versions on bench frames at 480×640, B = 8, with CUDA-event
-             medians of both; K3's box mode against its plain version;
+             medians of both; K3's box mode against its plain version; then
+             K1 and K3 (full frame and box mode) at the main path's shape,
+             one 257-frame chunk at level 0, with K1's one-call yardstick
+             (F.conv2d with the five folded 11×11 filters);
 4. slice   — the bench clip's 512 pairs as two 257-frame chunks through
              roi_body_flow_seq and then pc1_from_flow, with the launch
              counts, the kernel path against the plain path (on the card
@@ -22,7 +25,8 @@ Phases (any failed check raises, so the exit code is non-zero):
 5. profile — device time by kernel over one chunk (torch.profiler);
 6. TV-L1 kernels — K5 warp_sample and one 30-iteration K6 pd_chain
              against their plain versions on level-0 planes of the TV-L1
-             clip (16 pairs of 480×640), with CUDA-event medians;
+             clip (16 pairs of 480×640), with CUDA-event medians and K5's
+             one-call yardstick (F.grid_sample, border, align_corners);
 7. TV-L1 slice — tvl1_flow on the 16 pairs with default TVL1Params:
              launch counts, the kernel path against the plain path on the
              card and on the CPU, clips, frames/s and device time by kernel;
@@ -33,8 +37,14 @@ Phases (any failed check raises, so the exit code is non-zero):
              the card against the CPU, stage times and ROI-frames/s from
              decode, then device time by kernel over one ROI-dispatched chunk.
 
-The second-to-last line is the kernels JSON, the last line
-{"ok": true, "device": {...}}.  Imports neither JAX nor cv2.
+Every kernel row of the kernels JSON carries its bound: the larger of the
+bytes it must move (each input read once, each output written once) over
+3.35 TB/s and its float32 operations over 67 TFLOP/s (one H100 SXM, NVIDIA's
+data sheet), computed from the shapes of the call it was timed at, with
+its share (bound / time) and the time of one PyTorch call that computes the
+same function, or null where none does (the reason is printed).  The
+second-to-last line is the kernels JSON, the last line {"ok": true,
+"device": {...}}.  Imports neither JAX nor cv2.
 """
 
 from __future__ import annotations
@@ -61,18 +71,21 @@ TV_PAIRS = 16  # the JAX bench's TV-L1 line: render_clip(17, seed=2)
 # (name, K, TPU kernel it replaces, tolerance against the plain version
 # relative to the plain output's largest magnitude, and why).
 KERNELS = (
-    ("poly_exp", "K1", f"{PALLAS}:1542", 1e-5,
-     "the plain fp32 tap sums in their order, without FMA contraction; "
-     "room for last-bit differences of PyTorch's own kernels"),
+    ("poly_exp", "K1", f"{PALLAS}:1542", 0.0,
+     "bit-equal: the plain fp32 tap sums in their order, without FMA contraction"),
     ("update_matrices", "K2", f"{PALLAS}:566", 1e-5,
      "the plain guard and fp32 operations in their order, without FMA contraction"),
-    ("update_flow", "K3", f"{PALLAS}:1802", None,
-     "flow is a quotient by a determinant that can be small; held to "
-     "the path's 1e-3 px bar"),
+    ("update_flow", "K3", f"{PALLAS}:1802", 0.0,
+     "bit-equal: the plain window sums in their order, then the same solve"),
     ("update_matrices_tiles", "K4", f"{PALLAS}:1040", 0.0,
      "bit-equal: K2's device function, the plain version's operations in their order"),
 )
 FLOW_TOL_PX = 1e-3  # the JAX package's fused-vs-exact 480p bar
+MAIN_REPS = 10  # CUDA-event repetitions per round at the main path's shape
+# One H100 SXM (NVIDIA's data sheet): HBM bytes/s and float32 operations/s
+# outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 # The bench ROI (bench.py:106) and body axes (bench.py:107-109).
 ROI = np.array([[140.0, 90.0], [520.0, 110.0], [500.0, 400.0], [120.0, 380.0]])
 THETA = 0.3
@@ -190,9 +203,8 @@ def phase_kernels(clip, params, device):
     calls["update_matrices_tiles"] = k4_calls("ROI box")
     rows = {}
     for name, kid, replaces, rtol, why in KERNELS:
-        abs_tol = FLOW_TOL_PX if rtol is None else None
         rows[name] = _check_and_time(name, kid, SOURCE, replaces, *calls[name],
-                                     rtol=rtol, abs_tol=abs_tol, why=why)
+                                     rtol=rtol, abs_tol=None, why=why)
     name, kid, replaces, rtol, why = next(k for k in KERNELS if k[0] == "update_matrices_tiles")
     half = _check_and_time(name, kid, SOURCE, replaces, *k4_calls("random half"),
                            rtol=rtol, abs_tol=None, why=why + "; random half list")
@@ -205,8 +217,28 @@ def phase_kernels(clip, params, device):
                 raise AssertionError(f"K4 ({key}) wrote outside its listed tiles")
     print("K4: unlisted tiles bitwise unchanged for both lists")
 
+    px = CHECK_PAIRS * h * w
+    n_listed = int(fb.tile_mask(lists["ROI box"], CHECK_PAIRS, h, w, fb.TILE).sum())
+    _set_bound(rows["poly_exp"], (CHECK_PAIRS + 1) * h * w, *_k1_cost(params.poly_n), None,
+               "timed at the main path's shape in phase 3b")
+    _set_bound(rows["update_matrices"], px, *K2_COST, None, NO_LIBRARY["update_matrices"])
+    _set_bound(rows["update_flow"], px, *_k3_cost(params.winsize, params.gaussian_win), None,
+               NO_LIBRARY["update_flow"])
+    _set_bound(rows["update_matrices_tiles"], n_listed, *K2_COST, None,
+               NO_LIBRARY["update_matrices_tiles"])
+
     # K3 box mode over the level-0 box, against its plain version.
     box = fb.tile_box(tiles0, h, w)
+    _check_box_mode(m, params, box, flow_cf)
+    return rows, flow_plain, box
+
+
+def _check_box_mode(m, params, box, flow_cf):
+    """K3 in box mode against its plain version (bit-equal), with the flow
+    outside the box left as it was; returns the kernel and plain calls."""
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
+
     out0 = flow_cf.clone()
     kern = fc.update_flow_cf(m, params.winsize, params.gaussian_win, box, out0.clone())
     plain = fb.update_flow_cf_plain(m, params.winsize, params.gaussian_win, box, out0.clone())
@@ -214,11 +246,140 @@ def phase_kernels(clip, params, device):
     d_box = float((kern - plain).abs().max())
     inside = torch.zeros_like(out0, dtype=torch.bool)
     inside[:, :, box[0]:box[1], box[2]:box[3]] = True
-    print(f"K3 box mode {box}: max_abs_err {d_box:.3e} px against its plain version "
-          f"(bar {FLOW_TOL_PX} px, K3's; bit-equal expected)")
-    if not d_box <= FLOW_TOL_PX or not torch.equal(kern[~inside], out0[~inside]):
+    print(f"K3 box mode {box}, B={m.shape[0]}: max_abs_err {d_box:.3e} px against its plain "
+          f"version (bar 0.0: bit-equal); flow outside the box unchanged")
+    if d_box != 0.0 or not torch.equal(kern[~inside], out0[~inside]):
         raise AssertionError("K3 box mode disagrees with its plain version")
-    return rows, flow_plain
+    bufs = (out0.clone(), out0.clone())
+    return (lambda: fc.update_flow_cf(m, params.winsize, params.gaussian_win, box, bufs[0]),
+            lambda: fb.update_flow_cf_plain(m, params.winsize, params.gaussian_win, box, bufs[1]))
+
+
+# Bytes and float32 operations per pixel of each kernel, from its plain
+# version: every input read once and every output written once.
+K2_COST = (4 * (5 + 5 + 2 + 5), 70)  # r0, r1, flow in, M out; warp + assembly
+
+
+def _k1_cost(n):
+    """1 float in, 5 out; 9 correlations of 2n+1 taps and the 5 scalings."""
+    return 4 * (1 + 5), 9 * (2 * (2 * n + 1) - 1) + 9
+
+
+def _k3_cost(winsize, gaussian):
+    """5 M floats in, 2 flow floats out; per plane two passes of winsize taps
+    (Gaussian: a multiply per tap; box: one final scale), then the solve."""
+    per_plane = 2 * (winsize - 1) + (2 * winsize if gaussian else 1)
+    return 4 * (5 + 2), 5 * per_plane + 12
+
+
+def _k5_cost(c):
+    """C source floats and 2 flow floats in, C out; clamp, floor and the
+    bilinear blend per channel."""
+    return 4 * (2 * c + 2), 10 + 6 * c
+
+
+def _k6_cost(n_iterations):
+    """6 planes in, u and v out; about 58 operations per iteration (the
+    thresholding step, u = v - θ·div p, the gradients and the p update)."""
+    return 4 * (6 + 2), 6 + 58 * n_iterations
+
+
+NO_LIBRARY = {
+    "update_matrices": "no single PyTorch call does the warp under cv2's guard and the "
+                       "normal-equation assembly",
+    "update_flow": "no single PyTorch call does the window average and the 2x2 solve",
+    "update_matrices_tiles": "no single PyTorch call does K2's warp and assembly over a tile list",
+    "pd_chain": "no single PyTorch call runs the primal-dual chain",
+}
+
+
+def _set_bound(row, pixels, bytes_per_px, ops_per_px, library_ms, why_null=None):
+    """Fill a kernel row's bound (the larger of its bytes over the HBM rate
+    and its operations over the float32 rate), share and library time."""
+    t_bytes = pixels * bytes_per_px / HBM_BYTES_PER_S * 1e3
+    t_ops = pixels * ops_per_px / FP32_OPS_PER_S * 1e3
+    row["bound_ms"], row["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                                                     "operations")
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    row["library_ms"] = library_ms
+    lib = f"{library_ms:.4f} ms" if library_ms is not None else f"null ({why_null})"
+    print(f"  {row['name']}: bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+          f"({pixels} px x {bytes_per_px} B, {ops_per_px} ops), share "
+          f"{100 * row['share_of_bound']:.1f}%; library call {lib}")
+
+
+def _poly_filters(n, sigma, device):
+    """The five (2n+1)×(2n+1) filters of K1's output planes: the separable
+    products of g, x·g, x²·g folded with the inverse-Gram factors."""
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
+
+    g, xg, xxg, (ig11, ig03, ig33, ig55) = fb._poly_exp_tables(n, sigma)
+    f = np.stack([ig11 * np.outer(xg, g), ig11 * np.outer(g, xg),
+                  ig03 * np.outer(g, g) + ig33 * np.outer(xxg, g),
+                  ig03 * np.outer(g, g) + ig33 * np.outer(g, xxg), ig55 * np.outer(xg, xg)])
+    return torch.as_tensor(f[:, None].astype(np.float32), device=device)
+
+
+def phase_kernels_main(clip, params, device, rows, box):
+    """K1 and K3 (full frame and box mode) at the main path's shape: one
+    chunk of 257 frames / 256 pairs at level 0."""
+    import torch.nn.functional as F
+
+    from btcs_pnes_optical_flow_tpu_torch.ops import cvx
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
+
+    h, w = clip.shape[1:]
+    print(f"== 3b. K1 and K3 at the main path's shape: {CHUNK + 1} frames / {CHUNK} pairs "
+          f"of {h}x{w}, level 0")
+    frames = torch.as_tensor(clip[: CHUNK + 1], device=device)
+    lv = fb._level_image(frames.float(), 0, params, h, w)[0].contiguous()
+    n, sigma = params.poly_n, params.poly_sigma
+    name, kid, replaces, rtol, why = next(k for k in KERNELS if k[0] == "poly_exp")
+    b8 = rows[name]
+    row = _check_and_time(name, kid, SOURCE, replaces, lambda: fc.poly_exp_cf(lv, n, sigma),
+                          lambda: fb.poly_exp_cf_plain(lv, n, sigma), rtol=rtol, abs_tol=None,
+                          why=why, reps=MAIN_REPS)
+    padded = cvx.pad_replicate(lv, n, n)[:, None].contiguous()
+    filt = _poly_filters(n, sigma, device)
+    lib = F.conv2d(padded, filt)
+    d_lib = float((lib - fc.poly_exp_cf(lv, n, sigma)).abs().max())
+    lib_ms = _median_ms(lambda: F.conv2d(padded, filt), MAIN_REPS)
+    print(f"K1 library yardstick: F.conv2d of the replicate-padded frames with the 5 folded "
+          f"{2 * n + 1}x{2 * n + 1} filters (cuDNN, TF32 off; the pad not timed): "
+          f"{lib_ms:.4f} ms, max |conv - kernel| {d_lib:.3e} (other summation order)")
+    row.update(b8_ms=b8["ms"], b8_plain_ms=b8["plain_ms"],
+               max_abs_err=max(row["max_abs_err"], b8["max_abs_err"]))
+    rows["poly_exp"] = row
+    _set_bound(row, (CHUNK + 1) * h * w, *_k1_cost(n), lib_ms)
+    del padded, lib
+
+    poly = fc.poly_exp_cf(lv, n, sigma)
+    # Level-0 M of the chunk at its own flow (the kernel path's; K1 and K2
+    # are held bit-equal to their plain versions above).
+    flow = fb.farneback_flow_seq(frames, params).movedim(-1, 1).contiguous()
+    m = fc.update_matrices_cf(poly[:-1], poly[1:], flow)
+    del poly
+    name, kid, replaces, rtol, why = next(k for k in KERNELS if k[0] == "update_flow")
+    b8 = rows[name]
+    ws, gw = params.winsize, params.gaussian_win
+    row = _check_and_time(name, kid, SOURCE, replaces, lambda: fc.update_flow_cf(m, ws, gw),
+                          lambda: fb.update_flow_cf_plain(m, ws, gw), rtol=rtol, abs_tol=None,
+                          why=why, reps=MAIN_REPS)
+    row.update(b8_ms=b8["ms"], b8_plain_ms=b8["plain_ms"],
+               max_abs_err=max(row["max_abs_err"], b8["max_abs_err"]))
+    rows[name] = row
+    _set_bound(row, CHUNK * h * w, *_k3_cost(ws, gw), None, NO_LIBRARY[name])
+    kern_fn, plain_fn = _check_box_mode(m, params, box, flow)
+    kern_fn(), plain_fn()
+    box_ms = statistics.median([_median_ms(kern_fn, MAIN_REPS) for _ in range(2)])
+    box_plain_ms = statistics.median([_median_ms(plain_fn, MAIN_REPS) for _ in range(2)])
+    box_px = CHUNK * (box[1] - box[0]) * (box[3] - box[2])
+    box_bound = box_px * _k3_cost(ws, gw)[0] / HBM_BYTES_PER_S * 1e3
+    row.update(box_ms=box_ms, box_plain_ms=box_plain_ms, box_bound_ms=box_bound)
+    print(f"K3 box mode at the main path's shape: kernel {box_ms:.4f} ms, plain "
+          f"{box_plain_ms:.4f} ms, bound {box_bound:.4f} ms by bytes ({box_px} px), share "
+          f"{100 * box_bound / box_ms:.1f}%")
 
 
 def roi_mask(h, w):
@@ -227,7 +388,8 @@ def roi_mask(h, w):
     return fill_poly_mask(h, w, ROI)
 
 
-def _check_and_time(name, kid, source, replaces, kern_fn, plain_fn, rtol, abs_tol, why):
+def _check_and_time(name, kid, source, replaces, kern_fn, plain_fn, rtol, abs_tol, why,
+                    reps=REPS):
     """Hold one kernel against its plain version (raise past the bar: abs_tol
     when given, else rtol × max|plain|), then time both with CUDA events;
     returns the kernel's JSON row.  A tuple output is compared stacked."""
@@ -248,16 +410,16 @@ def _check_and_time(name, kid, source, replaces, kern_fn, plain_fn, rtol, abs_to
         kern_fn(), plain_fn()
     ms_k, ms_p = [], []
     for _ in range(2):  # plain, kernel, kernel, plain
-        ms_p.append(_median_ms(plain_fn))
-        ms_k.append(_median_ms(kern_fn))
-        ms_k.append(_median_ms(kern_fn))
-        ms_p.append(_median_ms(plain_fn))
+        ms_p.append(_median_ms(plain_fn, reps))
+        ms_k.append(_median_ms(kern_fn, reps))
+        ms_k.append(_median_ms(kern_fn, reps))
+        ms_p.append(_median_ms(plain_fn, reps))
     row = dict(name=name, route="cuda", source=source, replaces=replaces,
                launches=0, max_abs_err=abs_err,
                ms=statistics.median(ms_k), plain_ms=statistics.median(ms_p))
     print(f"{kid} {name}: max_abs_err {abs_err:.3e} rel {rel:.3e} (tol {bar}: {why}) "
           f"{'ok' if ok else 'FAIL'}; kernel {row['ms']:.4f} ms "
-          f"plain {row['plain_ms']:.4f} ms (median of {REPS}, 4 rounds)")
+          f"plain {row['plain_ms']:.4f} ms (median of {reps}, 4 rounds)")
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version")
     return row
@@ -521,6 +683,29 @@ def phase_tvl1_kernels(tv_clip, device):
         rows[name] = _check_and_time(name, kid, TV_SOURCE, replaces, *calls[name],
                                      rtol=tol if rel else None,
                                      abs_tol=None if rel else tol, why=why)
+    # K5's yardstick: grid_sample with border padding and align_corners
+    # samples at clamp(x + u, 0, w - 1), as K5 does.
+    import torch.nn.functional as F
+
+    xs = torch.arange(w, device=device, dtype=torch.float32)
+    ys = torch.arange(h, device=device, dtype=torch.float32)[:, None]
+    grid = torch.stack([(xs + flow_cf[:, 0]) * (2.0 / (w - 1)) - 1.0,
+                        (ys + flow_cf[:, 1]) * (2.0 / (h - 1)) - 1.0], dim=-1)
+
+    def sample():
+        return F.grid_sample(src, grid, mode="bilinear", padding_mode="border",
+                             align_corners=True)
+
+    d_lib = float((sample() - tc.warp_sample_cf(src, flow_cf)).abs().max())
+    sample()
+    lib_ms = _median_ms(sample)
+    print(f"K5 library yardstick: F.grid_sample(bilinear, border, align_corners=True) on the "
+          f"same coordinates: {lib_ms:.4f} ms, max |grid_sample - kernel| {d_lib:.3e} (its "
+          f"own coordinate arithmetic)")
+    b, c = src.shape[:2]
+    _set_bound(rows["warp_sample"], b * h * w, *_k5_cost(c), lib_ms)
+    _set_bound(rows["pd_chain"], b * h * w, *_k6_cost(p.n_iterations), None,
+               NO_LIBRARY["pd_chain"])
     return rows, flow_plain
 
 
@@ -603,7 +788,8 @@ def main():
     t0 = time.perf_counter()
     clip = render_clip(N_PAIRS + 1)
     print(f"bench clip {clip.shape} rendered in {time.perf_counter() - t0:.1f} s")
-    rows, flow_plain = phase_kernels(clip, params, device)
+    rows, flow_plain, box0 = phase_kernels(clip, params, device)
+    phase_kernels_main(clip, params, device, rows, box0)
     chunk, exd, eyd, masks, full_feats = phase_slice(clip, params, device, smi, rows,
                                                      flow_plain)
     from btcs_pnes_optical_flow_tpu_torch.models.flow import roi_body_flow_seq

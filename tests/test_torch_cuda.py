@@ -1,6 +1,6 @@
 """The CUDA kernels K1–K4 (Farnebäck) and K5–K6 (TV-L1) against their
-plain PyTorch versions, and the pipeline's flow stage against the CPU,
-on the card.
+plain PyTorch versions, and the pipeline's flow stage against the CPU and
+its CSV files, on the card.
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
 one.  The file imports neither JAX nor the repository's conftest, so it
@@ -21,9 +21,10 @@ from btcs_pnes_optical_flow_tpu_torch.ops import tvl1_cuda as tc
 
 pytestmark = pytest.mark.cuda
 
-# Shapes that are not tile multiples, tiny images whose rims overlap,
-# and a batch larger than one tile row of frames.
-SHAPES = [(3, 7, 9), (2, 45, 67), (5, 96, 128), (1, 33, 250)]
+# Shapes that are not multiples of K1's and K3's 32×64 tile, tiny images
+# whose rims overlap, widths that are and are not multiples of 4 (16-byte
+# and 4-byte copies), and one with interior tiles.
+SHAPES = [(3, 7, 9), (2, 45, 67), (5, 96, 128), (1, 33, 250), (2, 100, 256)]
 
 
 @pytest.fixture()
@@ -42,13 +43,15 @@ def _rel(kern, plain):
 
 
 @pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("n,sigma", [(5, 1.2), (7, 1.5), (12, 2.5)])
+@pytest.mark.parametrize("n,sigma", [(2, 0.9), (3, 1.1), (5, 1.2), (7, 1.5), (8, 1.8),
+                                     (12, 2.5)])
 def test_poly_exp_kernel(card, shape, n, sigma):
     img = _img(shape, 0).to(card)
     kern = fc.poly_exp_cf(img, n, sigma)
     plain = fb.poly_exp_cf_plain(img, n, sigma)
-    # fp32 (2n+1)-tap sums in another order with fused multiply-adds.
-    assert _rel(kern, plain) <= 1e-5
+    # Bit-equal: the plain fp32 tap sums in their order, without FMA
+    # contraction (n = 12 runs the run-time-radius instance).
+    assert torch.equal(kern, plain)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -69,7 +72,8 @@ def test_update_matrices_kernel(card, shape):
 
 
 @pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("winsize,gaussian", [(15, False), (15, True), (5, False), (31, False)])
+@pytest.mark.parametrize("winsize", [3, 5, 7, 15, 21, 31, 33])
+@pytest.mark.parametrize("gaussian", [False, True])
 def test_update_flow_kernel(card, shape, winsize, gaussian):
     b, h, w = shape
     p0 = fb.poly_exp_cf_plain(_img(shape, 4).to(card), 5, 1.2)
@@ -77,8 +81,22 @@ def test_update_flow_kernel(card, shape, winsize, gaussian):
     m = fb.update_matrices_cf_plain(p0, p1, torch.zeros((b, 2, h, w), device=card))
     kern = fc.update_flow_cf(m, winsize, gaussian)
     plain = fb.update_flow_cf_plain(m, winsize, gaussian)
-    # Window sums reordered, then divided by a regularized determinant.
-    assert float((kern - plain).abs().max()) <= 1e-3
+    # Bit-equal: the window sums in the plain order without FMA contraction,
+    # then the same solve (winsize 33 runs the run-time-radius instance).
+    assert torch.equal(kern, plain)
+
+
+def test_persistent_kernels_take_a_batch_above_the_grid_z_limit(card):
+    """K1 and K3 walk over (frame, tile) units in persistent blocks: a batch
+    past 65535 frames (the former grid-z limit) is covered to its end."""
+    b, h, w = 70000, 3, 6
+    img = _img((b, h, w), 21).to(card)
+    assert torch.equal(fc.poly_exp_cf(img, 5, 1.2), fb.poly_exp_cf_plain(img, 5, 1.2))
+    m = torch.as_tensor(np.random.default_rng(22).normal(size=(b, 5, h, w)).astype(np.float32))
+    m = m.to(card)
+    kern = fc.update_flow_cf(m, 5, False)
+    assert torch.equal(kern, fb.update_flow_cf_plain(m, 5, False))
+    assert torch.isfinite(kern[-1]).all()
 
 
 def test_flow_seq_kernels_match_plain(card):
@@ -162,7 +180,8 @@ def _boxes(h, w):
 
 @pytest.mark.parametrize("shape", TILE_SHAPES)
 @pytest.mark.parametrize("which", range(4))
-def test_update_flow_box_mode(card, shape, which):
+@pytest.mark.parametrize("winsize,gaussian", [(15, False), (5, True), (33, False)])
+def test_update_flow_box_mode(card, shape, which, winsize, gaussian):
     b, h, w = shape
     box = _boxes(h, w)[which]
     y0, y1, x0, x1 = box
@@ -171,14 +190,14 @@ def test_update_flow_box_mode(card, shape, which):
     m = fb.update_matrices_cf_plain(p0, p1, torch.zeros((b, 2, h, w), device=card))
     out0 = torch.as_tensor(
         np.random.default_rng(16).normal(size=(b, 2, h, w)).astype(np.float32)).to(card)
-    kern = fc.update_flow_cf(m, 15, False, box, out0.clone())
-    plain = fb.update_flow_cf_plain(m, 15, False, box, out0.clone())
+    kern = fc.update_flow_cf(m, winsize, gaussian, box, out0.clone())
+    plain = fb.update_flow_cf_plain(m, winsize, gaussian, box, out0.clone())
     inside = torch.zeros((b, 2, h, w), dtype=torch.bool, device=card)
     inside[:, :, y0:y1, x0:x1] = True
     assert torch.equal(kern[~inside], out0[~inside])
-    assert float((kern - plain).abs().max()) <= 1e-3  # K3's bar
+    assert torch.equal(kern, plain)  # bit-equal, as the full-frame kernel
     # The box solved alone equals the kernel on the cut-out M.
-    alone = fc.update_flow_cf(m[:, :, y0:y1, x0:x1].contiguous(), 15, False)
+    alone = fc.update_flow_cf(m[:, :, y0:y1, x0:x1].contiguous(), winsize, gaussian)
     assert torch.equal(kern[:, :, y0:y1, x0:x1], alone)
 
 
@@ -202,13 +221,10 @@ def test_tile_and_box_wrappers_reject_bad_inputs(card):
         fc.update_flow_cf(m, 15, False, (0, 10, 0, 30), flow[:1])
 
 
-def test_run_flow_stage_card_matches_cpu(card):
-    """The pipeline's ROI-dispatched flow stage on the card against the
-    CPU; the ROI is small enough that level 0 runs boxed (K4)."""
-    from btcs_pnes_optical_flow_tpu_torch.config import PipelineConfig
+def _pipeline_inputs():
+    """17 frames of 128×256 with a moving blob, body axes with NaN rows 5-6,
+    and an ROI small enough that level 0 runs boxed (K4)."""
     from btcs_pnes_optical_flow_tpu_torch.dataio.contracts import Skeleton
-    from btcs_pnes_optical_flow_tpu_torch.dataio.video import ArraySource
-    from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_flow_stage
 
     n, h, w = 17, 128, 256
     rng = np.random.default_rng(17)
@@ -223,6 +239,17 @@ def test_run_flow_stage_card_matches_cpu(card):
     ex[5:7] = np.nan
     skel = Skeleton(time_all=t, fps=30.0, ex=ex, ey=ey)
     roi = np.array([[100.0, 50.0], [150.0, 52.0], [148.0, 80.0], [102.0, 78.0]])
+    return frames, skel, roi
+
+
+def test_run_flow_stage_card_matches_cpu(card):
+    """The pipeline's ROI-dispatched flow stage on the card against the
+    CPU; the ROI is small enough that level 0 runs boxed (K4)."""
+    from btcs_pnes_optical_flow_tpu_torch.config import PipelineConfig
+    from btcs_pnes_optical_flow_tpu_torch.dataio.video import ArraySource
+    from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_flow_stage
+
+    frames, skel, roi = _pipeline_inputs()
     fc.reset_launch_counts()
     gpu = run_flow_stage(ArraySource(frames, 30.0), skel, [roi], PipelineConfig(),
                          chunk_pairs=8, device=card)
@@ -236,6 +263,46 @@ def test_run_flow_stage_card_matches_cpu(card):
         fin = np.isfinite(c)
         # ROI means of flows that agree within the path's 1e-3 px bar.
         np.testing.assert_allclose(a[fin], c[fin], atol=1e-3)
+
+
+def test_run_full_writes_its_csvs_on_the_card(card, tmp_path):
+    """run_full on the card writes flow.csv, the PC1 CSV and the summary
+    with the port's own writers (the card's machine has no pandas), and
+    reading them back with the csv module gives the run's own results."""
+    import csv
+
+    from btcs_pnes_optical_flow_tpu_torch.dataio.video import ArraySource
+    from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_full
+
+    frames, skel, roi = _pipeline_inputs()
+    paths = [str(tmp_path / f"{k}.csv") for k in ("flow", "pc1", "summary")]
+    flow, pc1, mets = run_full(ArraySource(frames, 30.0), skel, [roi], chunk_pairs=8,
+                               flow_csv=paths[0], pc1_csv=paths[1], summary_csv=paths[2],
+                               device=card)
+
+    def rows(path):
+        with open(path, newline="") as f:
+            return list(csv.reader(f))
+
+    def num(text):
+        return float("nan") if text == "" else float(text)
+
+    fl = rows(paths[0])
+    assert fl[0] == ["frame", "t_sec", "skel_idx", "axes_ok", "vx_body", "vy_body", "mag_body"]
+    got = np.array([[num(x) for x in r] for r in fl[1:]])
+    want = np.stack([flow.frame, flow.t_sec, flow.skel_idx, flow.axes_ok, flow.vx[:, 0],
+                     flow.vy[:, 0], flow.mag[:, 0]], 1)
+    assert got.shape == (17, 7) and np.array_equal(got, want, equal_nan=True)
+    assert np.isnan(got[[0, 5, 6], 4]).all() and np.isfinite(got[7:, 4]).all()
+    p1 = rows(paths[1])
+    assert p1[0] == ["t_sec", "pc1_dyn"] and len(p1) == 18
+    got = np.array([[num(x) for x in r] for r in p1[1:]])
+    assert np.array_equal(got[:, 1], pc1[:, 0].astype(np.float64), equal_nan=True)
+    sm = rows(paths[2])
+    assert len(sm) == 2 and len(sm[1]) == 8 and sm[1][0] == "pc1_dyn"
+    assert int(sm[1][7]) == int(mets[0].peak_n)
+    for i, f in enumerate(("pc1_area", "ads_slope", "ads_r2", "kendall_tau", "kendall_p")):
+        assert np.array_equal(num(sm[1][2 + i]), float(getattr(mets[0], f)), equal_nan=True)
 
 
 # TV-L1: odd sizes, a width past one tile row, B > 1.

@@ -16,6 +16,7 @@ from btcs_pnes_optical_flow_tpu.config import FarnebackParams
 from btcs_pnes_optical_flow_tpu.ops import cvx as jcvx
 from btcs_pnes_optical_flow_tpu.ops import farneback as jfb
 from btcs_pnes_optical_flow_tpu.ops import filters as jfilters
+from btcs_pnes_optical_flow_tpu_torch.config import from_fields
 from btcs_pnes_optical_flow_tpu_torch.ops import cvx as tcvx
 from btcs_pnes_optical_flow_tpu_torch.ops import farneback as tfb
 from btcs_pnes_optical_flow_tpu_torch.ops import filters as tfilters
@@ -141,7 +142,7 @@ def test_level_image_matches_jax(h, w, k, rng):
     p = FarnebackParams()
     img = (rng.random((2, h, w)) * 255).astype(np.float32)
     ref, hk, wk = jfb._level_image(jnp.asarray(img), k, p, h, w)
-    mine, hk2, wk2 = tfb._level_image(_t(img), k, p, h, w)
+    mine, hk2, wk2 = tfb._level_image(_t(img), k, from_fields(p), h, w)
     assert (hk, wk) == (hk2, wk2) == p.level_size(h, w, k)
     # Values in [0, 255]; fp32 sums of at most 20 taps in another order.
     assert np.abs(mine.numpy() - _np(ref)).max() <= 2e-6 * 255
@@ -168,7 +169,7 @@ def test_farneback_flow_seq_matches_jax_and_cv2(rng):
     frames = _frames(rng, 5, 96, 128)
     p = FarnebackParams()
     ref = _np(jfb.farneback_flow_seq(jnp.asarray(frames), p))
-    mine = tfb.farneback_flow_seq(_t(frames), p).numpy()
+    mine = tfb.farneback_flow_seq(_t(frames), from_fields(p)).numpy()
     assert mine.shape == ref.shape == (4, 96, 128, 2)
     # The JAX package's own differential bar (fused vs exact at 480p).
     assert np.abs(mine - ref).max() <= 1e-3
@@ -184,10 +185,11 @@ def test_flow_pairs_equal_seq_with_level_clamp(rng):
     pyramid to fewer levels (OpenCV stops at 32 px)."""
     frames = _frames(rng, 3, 40, 48)
     p = FarnebackParams(iter_schedule=(3, 2))
-    seq = tfb.farneback_flow_seq(_t(frames), p)
-    pairs = tfb.farneback_flow(_t(frames[:-1]), _t(frames[1:]), p)
+    tp = from_fields(p)
+    seq = tfb.farneback_flow_seq(_t(frames), tp)
+    pairs = tfb.farneback_flow(_t(frames[:-1]), _t(frames[1:]), tp)
     assert torch.equal(seq, pairs)
-    single = tfb.farneback_flow(_t(frames[0]), _t(frames[1]), p)
+    single = tfb.farneback_flow(_t(frames[0]), _t(frames[1]), tp)
     assert torch.equal(single, seq[0])
     ref = _np(jfb.farneback_flow(jnp.asarray(frames[:-1]), jnp.asarray(frames[1:]), p))
     assert np.abs(seq.numpy() - ref).max() <= 1e-3

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 
 from btcs_pnes_optical_flow_tpu.config import FarnebackParams
 from btcs_pnes_optical_flow_tpu.ops import farneback as jfb
+from btcs_pnes_optical_flow_tpu_torch.config import from_fields
 from btcs_pnes_optical_flow_tpu_torch.ops import farneback as tfb
 
 torch.set_num_threads(1)
@@ -63,7 +64,7 @@ def test_initial_flow_matches_jax_and_cv2(case, rng):
     init = _init_flow(base, ripple)
     ref = np.asarray(jfb.farneback_flow(jnp.asarray(f0), jnp.asarray(f1), p,
                                         flow0=jnp.asarray(init)))
-    mine = tfb.farneback_flow(torch.as_tensor(f0), torch.as_tensor(f1), p,
+    mine = tfb.farneback_flow(torch.as_tensor(f0), torch.as_tensor(f1), from_fields(p),
                               torch.as_tensor(init)).numpy()
     assert mine.shape == ref.shape == (H, W, 2)
     # The JAX package's exact-engine bar for the whole path.
@@ -74,7 +75,8 @@ def test_initial_flow_matches_jax_and_cv2(case, rng):
     assert _epe(cv, mine).max() < 1e-3
     if case == "single_level":
         # The initial flow really took part: a zero start ends elsewhere.
-        zero = tfb.farneback_flow(torch.as_tensor(f0), torch.as_tensor(f1), p).numpy()
+        zero = tfb.farneback_flow(torch.as_tensor(f0), torch.as_tensor(f1),
+                                  from_fields(p)).numpy()
         assert np.abs(zero - mine).max() > 0.5
 
 
@@ -84,17 +86,18 @@ def test_initial_flow_flag_and_argument_both_needed(rng):
     init = torch.as_tensor(_init_flow())
     zero = tfb.farneback_flow(f0, f1)
     # The flag without a flow0 starts from zero ...
-    assert torch.equal(tfb.farneback_flow(f0, f1, INIT), zero)
+    assert torch.equal(tfb.farneback_flow(f0, f1, from_fields(INIT)), zero)
     # ... and a flow0 without the flag is ignored, as cv2 ignores it.
-    assert torch.equal(tfb.farneback_flow(f0, f1, FarnebackParams(), init), zero)
+    assert torch.equal(tfb.farneback_flow(f0, f1, from_fields(FarnebackParams()), init), zero)
 
 
 def test_initial_flow_seq_equals_pairs(rng):
     frames = np.stack([_texture(rng, shift=(0.8 * i, -0.5 * i)) for i in range(4)])
     init = np.stack([_init_flow() * (1.0 + 0.1 * i) for i in range(3)])
     t = torch.as_tensor(frames)
-    seq = tfb.farneback_flow_seq(t, INIT, torch.as_tensor(init))
-    pairs = tfb.farneback_flow(t[:-1], t[1:], INIT, torch.as_tensor(init))
+    p = from_fields(INIT)
+    seq = tfb.farneback_flow_seq(t, p, torch.as_tensor(init))
+    pairs = tfb.farneback_flow(t[:-1], t[1:], p, torch.as_tensor(init))
     assert seq.shape == (3, H, W, 2)
     assert torch.equal(seq, pairs)
-    assert not torch.equal(seq, tfb.farneback_flow_seq(t, INIT))
+    assert not torch.equal(seq, tfb.farneback_flow_seq(t, p))

@@ -14,6 +14,7 @@ from btcs_pnes_optical_flow_tpu.models import metrics as jmetrics
 from btcs_pnes_optical_flow_tpu.ops import peaks as jpeaks
 from btcs_pnes_optical_flow_tpu.ops import stats as jstats
 from btcs_pnes_optical_flow_tpu.ops.filters import smooth_window_len as j_smooth_window_len
+from btcs_pnes_optical_flow_tpu_torch.config import from_fields
 from btcs_pnes_optical_flow_tpu_torch.models import metrics as tmetrics
 from btcs_pnes_optical_flow_tpu_torch.ops import peaks as tpeaks
 from btcs_pnes_optical_flow_tpu_torch.ops import stats as tstats
@@ -185,7 +186,7 @@ def _waveform(case):
 def test_pc1_metrics_match_jax(case):
     t, x = _waveform(case)
     params = MetricParams()
-    mine = tmetrics.pc1_metrics(t, x, params, device="cpu")
+    mine = tmetrics.pc1_metrics(t, x, from_fields(params), device="cpu")
     ref = jmetrics.pc1_metrics(t, x, params)
     assert int(mine.status) == int(ref.status)
     assert int(mine.peak_n) == int(ref.peak_n)
@@ -196,7 +197,7 @@ def test_pc1_metrics_match_jax(case):
         assert int(mine.status) == 0 and np.isfinite(float(mine.kendall_tau))
     if case.startswith("too_few"):
         with pytest.raises(RuntimeError):
-            tmetrics.pc1_metrics(t, x, params, strict=True, device="cpu")
+            tmetrics.pc1_metrics(t, x, from_fields(params), strict=True, device="cpu")
 
 
 def test_pc1_metrics_batch_matches_jax():

@@ -12,6 +12,7 @@ from btcs_pnes_optical_flow_tpu.config import PCAParams
 from btcs_pnes_optical_flow_tpu.models import pc1 as jpc1
 from btcs_pnes_optical_flow_tpu.ops import filters as jfilters
 from btcs_pnes_optical_flow_tpu.ops import pca as jpca
+from btcs_pnes_optical_flow_tpu_torch.config import from_fields
 from btcs_pnes_optical_flow_tpu_torch.models import pc1 as tpc1
 from btcs_pnes_optical_flow_tpu_torch.ops import filters as tfilters
 from btcs_pnes_optical_flow_tpu_torch.ops import pca as tpca
@@ -128,6 +129,6 @@ def test_pc1_from_flow_matches_jax(rng):
     vx, vy = _axis_signals(rng, 513, [(0, 1), (250, 262)])
     p = PCAParams()
     ref = np.asarray(jpc1.pc1_from_flow(jnp.asarray(vx), jnp.asarray(vy), p))
-    mine = tpc1.pc1_from_flow(_t(vx), _t(vy), p).numpy()
+    mine = tpc1.pc1_from_flow(_t(vx), _t(vy), from_fields(p)).numpy()
     assert mine.shape == (513,)
     _pc1_close(mine, ref)

@@ -13,6 +13,7 @@ from btcs_pnes_optical_flow_tpu.dataio.checkpoint import ChunkStore
 from btcs_pnes_optical_flow_tpu.dataio import contracts as jcontracts
 from btcs_pnes_optical_flow_tpu.dataio.video import ArraySource as JArraySource
 from btcs_pnes_optical_flow_tpu.models import pipeline as jpipeline
+from btcs_pnes_optical_flow_tpu_torch.config import from_fields
 from btcs_pnes_optical_flow_tpu_torch.dataio.contracts import Skeleton
 from btcs_pnes_optical_flow_tpu_torch.dataio.video import ArraySource, open_source
 from btcs_pnes_optical_flow_tpu_torch.models import pc1 as tpc1
@@ -23,6 +24,7 @@ from tests.test_pipeline import ROI, make_skeleton, render_clip
 
 torch.set_num_threads(1)
 CFG = PipelineConfig(metrics=MetricParams(window_sec=3.0))
+TCFG = from_fields(CFG)
 
 
 @pytest.fixture(scope="module")
@@ -37,7 +39,7 @@ def runs(clip):
     import cv2
 
     skel = make_skeleton(len(clip), nan_rows=((40, 44),))
-    mine = pipeline.run_full(ArraySource(clip, fps=30.0), Skeleton(*skel), [ROI], CFG,
+    mine = pipeline.run_full(ArraySource(clip, fps=30.0), Skeleton(*skel), [ROI], TCFG,
                              chunk_pairs=32, device="cpu")
     theirs = jpipeline.run_full(JArraySource(clip, fps=30.0), skel, [ROI], CFG, chunk_pairs=32)
     roi_mask = np.zeros(clip.shape[1:], np.uint8)
@@ -98,7 +100,7 @@ def test_csv_files_match_jax(runs, clip, tmp_path):
     _, _, _, skel = runs
     paths = {k: str(tmp_path / f"{k}.csv") for k in ("flow", "pc1", "summary")}
     res, pc1, mets = pipeline.run_full(ArraySource(clip, fps=30.0), Skeleton(*skel), [ROI],
-                                       CFG, chunk_pairs=32, flow_csv=paths["flow"],
+                                       TCFG, chunk_pairs=32, flow_csv=paths["flow"],
                                        pc1_csv=paths["pc1"], summary_csv=paths["summary"],
                                        device="cpu")
     jflow = jpipeline.FlowStageResult(**{f: getattr(res, f) for f in (

@@ -16,6 +16,7 @@ from btcs_pnes_optical_flow_tpu.config import FarnebackParams
 from btcs_pnes_optical_flow_tpu.models import flow as jflow
 from btcs_pnes_optical_flow_tpu.ops import cvx as jcvx
 from btcs_pnes_optical_flow_tpu_torch import check_supported
+from btcs_pnes_optical_flow_tpu_torch.config import from_fields
 from btcs_pnes_optical_flow_tpu_torch.models import flow as tflow
 from btcs_pnes_optical_flow_tpu_torch.ops import cvx as tcvx
 from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda
@@ -57,7 +58,8 @@ def test_slice_matches_jax():
     ref, ref_clips = jflow.roi_body_flow_seq(
         jnp.asarray(frames), jnp.asarray(ex), jnp.asarray(ey), jnp.asarray(mask), p)
     farneback_cuda.reset_launch_counts()
-    feats, clips = tflow.roi_body_flow_seq(*tflow.to_device(frames, ex, ey, mask, "cpu"), p)
+    feats, clips = tflow.roi_body_flow_seq(*tflow.to_device(frames, ex, ey, mask, "cpu"),
+                                           from_fields(p))
     assert clips.dtype == torch.int32 and tuple(clips.shape) == (32,)
     assert not clips.any() and not np.asarray(ref_clips).any()
     for name in ("vx", "vy", "mag"):
@@ -89,15 +91,18 @@ def test_host_helpers_match_jax():
     assert np.array_equal(tflow.skel_indices(t, t_all), jflow.skel_indices(t, t_all))
 
 
-def test_port_never_imports_jax():
-    """The port runs where jax, pandas and cv2 are missing: a subprocess
-    that cannot import them runs the flow + PC1 slice, TV-L1 and the
-    pipeline's run_full (no CSV asked for)."""
+def test_port_never_imports_jax(tmp_path):
+    """The port runs where the JAX package, jax, pandas and cv2 are missing:
+    a subprocess that cannot import them runs the flow + PC1 slice, TV-L1,
+    the pipeline's run_full with its three CSVs (read back with the csv
+    module), and the flow stage with a checkpoint directory, then resumed
+    from it."""
     code = (
-        "import sys\n"
+        "import csv, math, os, sys\n"
+        "BLOCKED = ('btcs_pnes_optical_flow_tpu', 'jax', 'jaxlib', 'pandas', 'cv2')\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'jaxlib', 'pandas', 'cv2'):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import numpy as np, torch\n"
@@ -123,23 +128,58 @@ def test_port_never_imports_jax():
         "t = np.arange(80) / 30.0\n"
         "skel = Skeleton(t, 30.0, np.tile([1.0, 0.0], (80, 1)), np.tile([0.0, 1.0], (80, 1)))\n"
         "roi = np.array([[5.0, 5.0], [40.0, 6.0], [38.0, 30.0], [6.0, 32.0]])\n"
+        "out = sys.argv[1]\n"
+        "paths = [os.path.join(out, n + '.csv') for n in ('flow', 'pc1', 'summary')]\n"
         "flow, pc1, mets = run_full(ArraySource(clip, 30.0), skel, [roi], chunk_pairs=32,\n"
+        "                           flow_csv=paths[0], pc1_csv=paths[1], summary_csv=paths[2],\n"
         "                           device='cpu')\n"
         "assert flow.vx.shape == (80, 1) and pc1.shape == (80, 1) and len(mets) == 1\n"
         "assert np.isfinite(flow.vx[1:]).all() and np.isfinite(pc1[1:]).any()\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pandas', 'cv2')]\n"
+        "from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_flow_stage\n"
+        "ck = os.path.join(out, 'ck')\n"
+        "for i in range(2):  # the second run resumes every chunk from the checkpoints\n"
+        "    again = run_flow_stage(ArraySource(clip, 30.0), skel, [roi], chunk_pairs=32,\n"
+        "                           out_csv=os.path.join(out, f'ck{i}.csv'), checkpoint_dir=ck,\n"
+        "                           device='cpu')\n"
+        "    assert np.array_equal(again.vx, flow.vx, equal_nan=True)\n"
+        "    assert open(os.path.join(out, f'ck{i}.csv'), 'rb').read() == open(paths[0], 'rb').read()\n"
+        "    stamps = {n: os.stat(os.path.join(ck, n)).st_mtime_ns for n in os.listdir(ck)}\n"
+        "    if i == 0:\n"
+        "        assert sorted(stamps) == ['chunk_00000000.npz', 'chunk_00000032.npz',\n"
+        "                                  'chunk_00000064.npz', 'meta.json']\n"
+        "        written = stamps\n"
+        "assert stamps == written  # the resumed run wrote no chunk again\n"
+        "def rows(p):\n"
+        "    with open(p, newline='') as fh:\n"
+        "        return list(csv.reader(fh))\n"
+        "def num(s):\n"
+        "    return math.nan if s == '' else float(s)\n"
+        "fl = rows(paths[0])\n"
+        "assert fl[0] == ['frame', 't_sec', 'skel_idx', 'axes_ok', 'vx_body', 'vy_body', 'mag_body']\n"
+        "got = np.array([[num(x) for x in r] for r in fl[1:]])\n"
+        "want = np.stack([flow.frame, flow.t_sec, flow.skel_idx, flow.axes_ok,\n"
+        "                 flow.vx[:, 0], flow.vy[:, 0], flow.mag[:, 0]], 1)\n"
+        "assert np.array_equal(got, want, equal_nan=True)\n"
+        "p1 = rows(paths[1])\n"
+        "assert p1[0] == ['t_sec', 'pc1_dyn'] and len(p1) == 81\n"
+        "got = np.array([[num(x) for x in r] for r in p1[1:]])\n"
+        "assert np.array_equal(got[:, 1], pc1[:, 0].astype(float), equal_nan=True)\n"
+        "sm = rows(paths[2])\n"
+        "assert len(sm) == 2 and sm[1][0] == 'pc1_dyn' and int(sm[1][7]) == int(mets[0].peak_n)\n"
+        "assert num(sm[1][2]) == float(mets[0].pc1_area)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                          env=env, cwd=REPO, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)], capture_output=True,
+                          text=True, env=env, cwd=REPO, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
 
 
 def test_check_supported():
-    p = FarnebackParams()
+    p = from_fields(FarnebackParams())
     with pytest.raises(ValueError):
         check_supported(dataclasses.replace(p, warp_precision="bf16"))
     # TPU-only warp knobs, the ROI box and the iteration schedule are accepted.

@@ -12,6 +12,7 @@ import torch
 from btcs_pnes_optical_flow_tpu.config import FarnebackParams
 from btcs_pnes_optical_flow_tpu.ops import farneback as jfb
 from btcs_pnes_optical_flow_tpu.ops.farneback_fused import roi_dispatch_params as j_roi_params
+from btcs_pnes_optical_flow_tpu_torch.config import from_fields
 from btcs_pnes_optical_flow_tpu_torch.ops import farneback as tfb
 from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda
 
@@ -137,9 +138,9 @@ def _mask(h, w, boxes):
 ])
 def test_roi_dispatch_params_match_jax(h, w, boxes, params):
     mask = _mask(h, w, boxes)
-    mine = tfb.roi_dispatch_params(params, h, w, mask)
-    assert mine == j_roi_params(params, h, w, mask)
-    assert mine == tfb.roi_dispatch_params(params, h, w, np.stack([mask, mask]))
+    mine = tfb.roi_dispatch_params(from_fields(params), h, w, mask)
+    assert mine == from_fields(j_roi_params(params, h, w, mask))
+    assert mine == tfb.roi_dispatch_params(from_fields(params), h, w, np.stack([mask, mask]))
     if not boxes:
         assert mine.roi_active_px is None
 
@@ -170,8 +171,8 @@ def test_roi_dispatch_matches_full_inside_roi():
     and at least one level runs boxed (K4 + K3 box mode)."""
     h, w = 192, 300
     frames = torch.as_tensor(_textured(3, h, w, seed=0))
-    p = FarnebackParams(levels=2, iterations=2, winsize=7, warp_d_max_y=4, warp_d_max_x=4,
-                        warp_s_cap=4, warp_base_max=24)
+    p = from_fields(FarnebackParams(levels=2, iterations=2, winsize=7, warp_d_max_y=4,
+                                    warp_d_max_x=4, warp_s_cap=4, warp_base_max=24))
     mask = _mask(h, w, [(80, 110, 60, 240)])
     p_roi = tfb.roi_dispatch_params(p, h, w, mask)
     boxed = [k for k, box in enumerate(p_roi.roi_active_px)
@@ -191,7 +192,7 @@ def test_roi_dispatch_params_leave_a_whole_level_alone():
     """A box covering the level changes nothing: the boxed run equals the
     full-frame run everywhere."""
     frames = torch.as_tensor(_textured(2, 48, 64, seed=1))
-    p = FarnebackParams(levels=1, iterations=2)
+    p = from_fields(FarnebackParams(levels=1, iterations=2))
     p_box = dataclasses.replace(p, roi_active_px=((0, 48, 0, 64), (-9, 40, -9, 50)))
     assert torch.equal(tfb.farneback_flow_seq(frames, p_box), tfb.farneback_flow_seq(frames, p))
 
