@@ -19,9 +19,18 @@ Engines, resolved as the JAX package resolves them with the CUDA card in
 the TPU's place: every ``warp_engine`` samples directly (K5 on a CUDA
 tensor; the banded-warp knobs are accepted and ignored, since a direct
 sample has no reach limit and never clips).  ``pd_engine`` "resident",
-or "auto" on a CUDA tensor, runs K6 for the full static ``n_iterations``
-and ignores ε; "xla", or "auto" on a CPU tensor, runs the ε early-exit
-loop in plain PyTorch on either device.
+or "auto" on a CUDA tensor, asks for the fixed-length chain (K6 on a
+CUDA tensor), which runs the full static ``n_iterations`` and ignores ε;
+"xla", or "auto" on a CPU tensor, runs the ε early-exit loop in plain
+PyTorch on either device.  As in the JAX package (``ops/tvl1.py
+_tvl1_level``), the fixed-length chain is then narrowed per pyramid
+level by ``_resident_ok``, a pure function of the level's shape and
+``n_iterations``: a level whose resident row blocks would recompute a
+halo taller than themselves (padded width ≥ 896 px at the default 30
+iterations, e.g. level 0 of 720×1280 and levels 0–1 of 1080×1920) runs
+the ε loop instead, on whatever device it is on.  That is the
+reference's engine choice, made the same way on every device; it never
+depends on an error.
 """
 
 from __future__ import annotations
@@ -164,6 +173,27 @@ def _resolve_pd_engine(engine: str, device: torch.device) -> bool:
     return engine == "resident"
 
 
+def _resident_geometry(h: int, w: int, n_iterations: int) -> Tuple[int, int]:
+    """(rows per block, halo rows) of the JAX package's resident chain:
+    the integer geometry of its ``ops/tvl1_pallas.py _block_geometry``,
+    copied.  A level whose slab fits 6 MB runs as one block, no halo."""
+    wp = -(-w // 128) * 128
+    hp = -(-h // 8) * 8
+    halo = -(-2 * n_iterations // 8) * 8
+    if 16 * hp * wp * 4 <= 6 << 20:
+        return hp, 0
+    bh = max(8, (((10 << 20) // (16 * 4 * wp)) - 2 * halo) // 8 * 8)
+    return min(bh, hp), halo
+
+
+def _resident_ok(h: int, w: int, p: TVL1Params) -> bool:
+    """The JAX package's per-level check (``ops/tvl1.py _resident_ok``):
+    the fixed-length chain runs at an (h, w) level only when its row
+    blocks are at least as tall as their halo."""
+    bh, halo = _resident_geometry(h, w, p.n_iterations)
+    return halo == 0 or bh >= halo
+
+
 def _pyramid_sizes(h: int, w: int, params: TVL1Params):
     sizes = [(h, w)]
     for _ in range(params.n_scales - 1):
@@ -190,6 +220,7 @@ def _tvl1_level(i0, i1, u, v, p: TVL1Params, resident: bool, kernels: bool):
     """One pyramid level: n_warps × (linearise + primal–dual)."""
     warp = tvl1_cuda.warp_sample_cf if kernels else warp_sample_cf_plain
     chain = tvl1_cuda.pd_chain if kernels else pd_chain_plain
+    resident = resident and _resident_ok(*u.shape[-2:], p)
     # I1 and its gradient do not change across the level's warps.
     src = torch.stack([i1, *_grad(i1)], dim=1)
     for _ in range(p.n_warps):

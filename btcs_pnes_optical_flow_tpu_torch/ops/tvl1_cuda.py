@@ -10,14 +10,15 @@ tensor on the CPU.  For a CUDA tensor it checks device, dtype, shape and
 contiguity, allocates outputs and scratch with ``torch.empty``, launches
 on the current stream and raises if a launch fails; there is no
 fallback.  ``LAUNCHES`` counts K5 launches (``warp_sample``), K6 chains
-(``pd_chain``: one invariants launch each) and K6 per-iteration launches
-(``pd_iteration``).
+(``pd_chain``) and K6 launches (``pd_block``: ``len(pd_schedule(...))``
+per chain, each running several iterations).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -25,7 +26,11 @@ from btcs_pnes_optical_flow_tpu_torch.ops import _build
 from btcs_pnes_optical_flow_tpu_torch.ops import tvl1 as _plain
 from btcs_pnes_optical_flow_tpu_torch.ops.farneback_cuda import _check
 
-LAUNCHES = {"warp_sample": 0, "pd_chain": 0, "pd_iteration": 0}
+LAUNCHES = {"warp_sample": 0, "pd_chain": 0, "pd_block": 0}
+# The iteration depths K6 is compiled for (csrc/tvl1.cu tv_pd_block), and
+# the depth a chain runs at unless the caller asks for another.
+PD_DEPTHS = tuple(range(1, 11))
+PD_DEPTH = 8
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
@@ -43,8 +48,7 @@ def library():
     lib = _build.load("tvl1.cu").lib
     sigs = {
         "tv_warp_sample": [_P, _P, _P, _LL, _I, _I, _I, _P],
-        "tv_pd_init": [_P, _P, _P, _P, _P, _LL, _F, _P],
-        "tv_pd_iteration": [_P] * 10 + [_LL, _I, _I, _F, _F, _F, _P],
+        "tv_pd_block": [_P] * 10 + [_LL, _I, _I, _I, _F, _F, _F, _P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -72,6 +76,9 @@ def warp_sample_cf(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     _check(flow, "flow", (b, 2, h, w))
     if flow.device != src.device:
         raise ValueError("src and flow must be on one device")
+    if max(c, 2) * h * w >= 2**31 or b * h * -(-w // 128) * 32 >= 2**31:
+        raise ValueError(f"K5 takes fewer than 2^31 elements a frame and threads a launch, "
+                         f"got {tuple(src.shape)}")
     out = torch.empty_like(src)
     if out.numel():
         LAUNCHES["warp_sample"] += 1
@@ -80,11 +87,24 @@ def warp_sample_cf(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def pd_schedule(n_iterations: int, depth: int = PD_DEPTH) -> Tuple[int, ...]:
+    """K6's launches for one chain: the iteration depth of each launch in
+    order, ``depth`` each and the remainder last, summing to
+    ``n_iterations`` (8+8+8+6 for 30 at depth 8)."""
+    if depth not in PD_DEPTHS:
+        raise ValueError(f"K6 is compiled for depths {PD_DEPTHS}, got {depth}")
+    if n_iterations <= 0:
+        return ()
+    full, rest = divmod(n_iterations, depth)
+    return (depth,) * full + ((rest,) if rest else ())
+
+
 def pd_chain(u: torch.Tensor, v: torch.Tensor, rho_c: torch.Tensor, i1wx: torch.Tensor,
              i1wy: torch.Tensor, grad_sq: torch.Tensor, n_iterations: int, tau: float,
-             lambda_: float, theta: float):
+             lambda_: float, theta: float, *, depth: int = PD_DEPTH):
     """K6: one warp's primal–dual chain, all planes (B, H, W) float32 →
-    (u, v) after ``n_iterations`` steps with the duals started at zero."""
+    (u, v) after ``n_iterations`` steps with the duals started at zero, in
+    the launches of ``pd_schedule(n_iterations, depth)``."""
     if u.device.type == "cpu":
         return _plain.pd_chain_plain(u, v, rho_c, i1wx, i1wy, grad_sq,
                                      n_iterations, tau, lambda_, theta)
@@ -94,8 +114,9 @@ def pd_chain(u: torch.Tensor, v: torch.Tensor, rho_c: torch.Tensor, i1wx: torch.
         _check(t, name, (b, h, w))
         if t.device != u.device:
             raise ValueError("the six planes must be on one device")
+    schedule = pd_schedule(n_iterations, depth)
     out = torch.empty((2, b, h, w), dtype=torch.float32, device=u.device)
-    if n_iterations <= 0 or not u.numel():  # no step, as in the plain loop
+    if not schedule or not u.numel():  # no step, as in the plain loop
         out[0].copy_(u)
         out[1].copy_(v)
         return out[0], out[1]
@@ -104,19 +125,20 @@ def pd_chain(u: torch.Tensor, v: torch.Tensor, rho_c: torch.Tensor, i1wx: torch.
     l_t = lambda_ * theta
     tau_theta = tau / theta
     lib = library()
-    inv = torch.empty((3, b, h, w), dtype=torch.float32, device=u.device)
-    state = torch.empty((2, 6, b, h, w), dtype=torch.float32, device=u.device)  # ping-pong
+    # Ping-pong state [u, v, p11, p12, p21, p22] between a chain's launches:
+    # a launch reads its neighbours' halos, so it never writes in place.
+    state = (torch.empty((2, 6, b, h, w), dtype=torch.float32, device=u.device)
+             if len(schedule) > 1 else None)
+    fixed = (rho_c.data_ptr(), i1wx.data_ptr(), i1wy.data_ptr(), grad_sq.data_ptr())
+    cur = (u.data_ptr(), v.data_ptr(), None)  # the first launch starts the duals at zero
     LAUNCHES["pd_chain"] += 1
-    _launch(lib.tv_pd_init, i1wx.data_ptr(), i1wy.data_ptr(), grad_sq.data_ptr(),
-            inv.data_ptr(), state[0, 2].data_ptr(), u.numel(), l_t)
-    fixed = (rho_c.data_ptr(), i1wx.data_ptr(), i1wy.data_ptr(), inv.data_ptr())
-    cur_u, cur_v, cur_p = u.data_ptr(), v.data_ptr(), state[0, 2].data_ptr()
-    for it in range(n_iterations):
-        nxt = state[(it + 1) % 2]
-        dst = out if it == n_iterations - 1 else nxt
-        dst_u, dst_v, dst_p = dst[0].data_ptr(), dst[1].data_ptr(), nxt[2].data_ptr()
-        LAUNCHES["pd_iteration"] += 1
-        _launch(lib.tv_pd_iteration, cur_u, cur_v, cur_p, *fixed, dst_u, dst_v, dst_p,
-                b, h, w, l_t, theta, tau_theta)
-        cur_u, cur_v, cur_p = dst_u, dst_v, dst_p
+    for k, d in enumerate(schedule):
+        if k == len(schedule) - 1:
+            dst = (out[0].data_ptr(), out[1].data_ptr(), None)
+        else:
+            nxt = state[k % 2]
+            dst = (nxt[0].data_ptr(), nxt[1].data_ptr(), nxt[2].data_ptr())
+        LAUNCHES["pd_block"] += 1
+        _launch(lib.tv_pd_block, *cur, *fixed, *dst, b, h, w, d, l_t, theta, tau_theta)
+        cur = dst
     return out[0], out[1]

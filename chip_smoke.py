@@ -15,9 +15,10 @@ Phases (any failed check raises, so the exit code is non-zero):
              a seeded random half of all tiles) against their plain PyTorch
              versions on bench frames at 480×640, B = 8, with CUDA-event
              medians of both; K3's box mode against its plain version; then
-             K1 and K3 (full frame and box mode) at the main path's shape,
-             one 257-frame chunk at level 0, with K1's one-call yardstick
-             (F.conv2d with the five folded 11×11 filters);
+             (3b) K1, K4 over the ROI box's tiles and K3 (full frame and box
+             mode) at the main path's shape, one 257-frame chunk at level 0,
+             with K1's one-call yardstick (F.conv2d with the five folded
+             11×11 filters);
 4. slice   — the bench clip's 512 pairs as two 257-frame chunks through
              roi_body_flow_seq and then pc1_from_flow, with the launch
              counts, the kernel path against the plain path (on the card
@@ -25,11 +26,19 @@ Phases (any failed check raises, so the exit code is non-zero):
 5. profile — device time by kernel over one chunk (torch.profiler);
 6. TV-L1 kernels — K5 warp_sample and one 30-iteration K6 pd_chain
              against their plain versions on level-0 planes of the TV-L1
-             clip (16 pairs of 480×640), with CUDA-event medians and K5's
-             one-call yardstick (F.grid_sample, border, align_corners);
+             clip (16 pairs of 480×640), with CUDA-event medians; K5 beside
+             its one-call yardstick (F.grid_sample, border, align_corners) in
+             alternating rounds; K6 (bit-equal at every run) at each pyramid
+             level with its default schedule, and at level 0 at every
+             compiled depth (depth 1 is one launch per iteration);
 7. TV-L1 slice — tvl1_flow on the 16 pairs with default TVL1Params:
-             launch counts, the kernel path against the plain path on the
-             card and on the CPU, clips, frames/s and device time by kernel;
+             launch counts against the per-level schedule (15 K5, 15 chains
+             of ceil(30 / depth) K6 launches), the kernel path against the
+             plain path on the card and on the CPU, clips, frames/s on the
+             card (fenced by a synchronise) and with the flow copied to the
+             host, then (7b) device time by kernel, the host's largest
+             operators and the device busy share of the call (kernel time /
+             its time on the card);
 8. pipeline — run_full on the 513-frame bench clip (ArraySource, the bench
              ROI, body axes at θ = 0.3, chunks of 256 pairs, PipelineConfig()):
              launches against the schedule derived from the ROI boxes, ROI
@@ -96,9 +105,10 @@ TV_KERNELS = (
     ("warp_sample", "K5", f"{PALLAS}:1359", 1e-5,
      "relative to max|plain|: the plain clamp, floor and bilinear fp32 "
      "operations in their order, without FMA contraction (bit-equal expected)"),
-    ("pd_chain", "K6", f"{TV_PALLAS}:204", 1e-4,
-     "px absolute over one 30-iteration chain: the plain factored "
-     "operations in their order, without FMA contraction"),
+    ("pd_chain", "K6", f"{TV_PALLAS}:204", 0.0,
+     "px absolute over one 30-iteration chain, bit-equal: the plain factored "
+     "operations in their order, without FMA contraction, on tiles whose halos "
+     "are recomputed exactly"),
 )
 
 
@@ -149,6 +159,31 @@ def phase_build():
                 print(f"  ptxas: {line.strip()}")
         print(f"build {res.seconds:.2f} s -> {res.path.name}")
     print(f"both built in {time.perf_counter() - t0:.2f} s")
+    _sass_mix(results[1].path, f"pd_block_kernelILi{tvl1_cuda.PD_DEPTH}E")
+
+
+def _sass_mix(lib_path, mangled):
+    """The instruction mix of one kernel's SASS (cuobjdump), where the
+    toolkit has cuobjdump: what K6's time is spent issuing."""
+    import collections
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                              check=True, timeout=120).stdout
+    except (OSError, subprocess.SubprocessError) as exc:
+        print(f"SASS of {mangled}: not read ({exc})")
+        return
+    for part in sass.split("Function : ")[1:]:
+        if mangled not in part.splitlines()[0]:
+            continue
+        ops = collections.Counter(
+            m.group(1).split(".")[0] for m in re.finditer(
+                r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", part))
+        print(f"SASS of {mangled}: {sum(ops.values())} instructions; "
+              + ", ".join(f"{op} {n}" for op, n in ops.most_common(16)))
 
 
 def _rel_err(kern, plain):
@@ -278,10 +313,23 @@ def _k5_cost(c):
     return 4 * (2 * c + 2), 10 + 6 * c
 
 
+# K6's float32 operations per pixel, counted from pd_chain_plain with its
+# loop invariants hoisted (a square root or a division counts as one):
+# per chain max + division for -1/max(|∇I|², 1e-9), its two products with
+# I1wx and I1wy, l_t·|∇I|², l_t·I1wx and l_t·I1wy; per iteration rho (2
+# multiplies, 2 adds), the two threshold compares, rho·wx_igs and
+# rho·wy_igs, two divergences (2 differences and an add each), u and v +
+# d + θ·div (2 adds and a multiply each), four forward differences, two
+# gradient norms (2 multiplies, an add, a square root), their two
+# reciprocal factors (a multiply, an add, a division) and the four dual
+# updates (2 multiplies and an add each).
+K6_OPS_PER_CHAIN = 7
+K6_OPS_PER_ITERATION = 4 + 2 + 2 + 6 + 6 + 4 + 8 + 6 + 12
+
+
 def _k6_cost(n_iterations):
-    """6 planes in, u and v out; about 58 operations per iteration (the
-    thresholding step, u = v - θ·div p, the gradients and the p update)."""
-    return 4 * (6 + 2), 6 + 58 * n_iterations
+    """6 planes in, u and v out; the operations above."""
+    return 4 * (6 + 2), K6_OPS_PER_CHAIN + K6_OPS_PER_ITERATION * n_iterations
 
 
 NO_LIBRARY = {
@@ -321,8 +369,8 @@ def _poly_filters(n, sigma, device):
 
 
 def phase_kernels_main(clip, params, device, rows, box):
-    """K1 and K3 (full frame and box mode) at the main path's shape: one
-    chunk of 257 frames / 256 pairs at level 0."""
+    """K1, K4 (over the ROI box's tiles) and K3 (full frame and box mode) at
+    the main path's shape: one chunk of 257 frames / 256 pairs at level 0."""
     import torch.nn.functional as F
 
     from btcs_pnes_optical_flow_tpu_torch.ops import cvx
@@ -330,7 +378,7 @@ def phase_kernels_main(clip, params, device, rows, box):
     from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
 
     h, w = clip.shape[1:]
-    print(f"== 3b. K1 and K3 at the main path's shape: {CHUNK + 1} frames / {CHUNK} pairs "
+    print(f"== 3b. K1, K4 and K3 at the main path's shape: {CHUNK + 1} frames / {CHUNK} pairs "
           f"of {h}x{w}, level 0")
     frames = torch.as_tensor(clip[: CHUNK + 1], device=device)
     lv = fb._level_image(frames.float(), 0, params, h, w)[0].contiguous()
@@ -359,6 +407,7 @@ def phase_kernels_main(clip, params, device, rows, box):
     # are held bit-equal to their plain versions above).
     flow = fb.farneback_flow_seq(frames, params).movedim(-1, 1).contiguous()
     m = fc.update_matrices_cf(poly[:-1], poly[1:], flow)
+    _k4_main(rows, params, poly, flow, m, h, w, device)
     del poly
     name, kid, replaces, rtol, why = next(k for k in KERNELS if k[0] == "update_flow")
     b8 = rows[name]
@@ -380,6 +429,35 @@ def phase_kernels_main(clip, params, device, rows, box):
     print(f"K3 box mode at the main path's shape: kernel {box_ms:.4f} ms, plain "
           f"{box_plain_ms:.4f} ms, bound {box_bound:.4f} ms by bytes ({box_px} px), share "
           f"{100 * box_bound / box_ms:.1f}%")
+
+
+def _k4_main(rows, params, poly, flow, m, h, w, device):
+    """K4 at the main path's shape: the 256 pairs of one chunk over the tiles
+    of the bench ROI's level-0 box, into the chunk's level-0 M."""
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
+
+    b = m.shape[0]
+    tiles0 = fb.box_tiles(fb.roi_dispatch_params(params, h, w, roi_mask(h, w)).roi_active_px[0],
+                          h, w)
+    sel = fb.tile_list(b, tiles0, h, w, device)
+    r0, r1 = poly[:-1], poly[1:]
+    mk, mp = m.clone(), m.clone()
+    name, kid, replaces, rtol, why = next(k for k in KERNELS if k[0] == "update_matrices_tiles")
+    b8 = rows[name]
+    row = _check_and_time(name, kid, SOURCE, replaces,
+                          lambda: fc.update_matrices_tiles_cf(r0, r1, flow, sel, mk, fb.TILE),
+                          lambda: fb.update_matrices_tiles_cf_plain(r0, r1, flow, sel, mp, fb.TILE),
+                          rtol=rtol, abs_tol=None, why=why + f"; {b} pairs, ROI box list",
+                          reps=MAIN_REPS)
+    row.update(b8_ms=b8["ms"], b8_plain_ms=b8["plain_ms"],
+               max_abs_err=max(row["max_abs_err"], b8["max_abs_err"]))
+    rows[name] = row
+    n_listed = int(fb.tile_mask(sel, b, h, w, fb.TILE).sum())
+    print(f"K4 at the main path's shape: {sel.numel()} tiles of {fb.TILE} ({n_listed} px; the "
+          f"wrapper's time includes its one read-back of sel's range)")
+    _set_bound(row, n_listed, *K2_COST, None, NO_LIBRARY[name])
+    del mk, mp
 
 
 def roi_mask(h, w):
@@ -616,7 +694,10 @@ def phase_pipeline(clip, device, smi, rows, full_feats):
     return flow_p
 
 
-def phase_profile(title, run):
+def phase_profile(title, run, host_top=0):
+    """Device time by kernel over ``run`` (torch.profiler); with host_top,
+    also the host operators with the most self time.  Returns the total
+    device time in ms, or None where the profiler recorded none."""
     from torch.profiler import ProfilerActivity, profile
 
     print(title)
@@ -632,25 +713,35 @@ def phase_profile(title, run):
     total = sum(dev_us(e) for e in events)
     if not total:
         print("profiler recorded no device time")
-        return
+        return None
     for e in sorted(events, key=lambda e: -dev_us(e))[:12]:
         print(f"  {dev_us(e) / 1e3:9.3f} ms {100 * dev_us(e) / total:5.1f}% "
               f"x{e.count:<5d} {e.key[:90]}")
     print(f"  total device time {total / 1e3:.3f} ms over {len(events)} kernel names")
+    if host_top:
+        host = [e for e in prof.key_averages() if getattr(e, "device_type", None) != cuda]
+        host_total = sum(e.self_cpu_time_total for e in host)
+        print(f"  host self time under the profiler {host_total / 1e3:.3f} ms; the largest:")
+        for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:host_top]:
+            print(f"  {e.self_cpu_time_total / 1e3:9.3f} ms x{e.count:<5d} {e.key[:90]}")
+    return total / 1e3
 
 
-def _tv_level0_planes(prev, curr, flow):
-    """Level-0 inputs of the TV-L1 kernels: the source planes (I1, I1x,
-    I1y) of the blurred frame and the chain's six planes from the plain
-    warp at ``flow`` (B, 2, H, W), as ops/tvl1.py _tvl1_level builds them
-    (at level 0 the pyramid's resize is the identity)."""
+def _tv_level_planes(prev, curr, flow, level, p):
+    """Inputs of the TV-L1 kernels at pyramid ``level``: the source planes
+    (I1, I1x, I1y) of the blurred, resized frame and the chain's six planes
+    from the plain warp at ``flow`` (B, 2, H, W) resized to the level and
+    scaled, as ops/tvl1.py tvl1_flow and _tvl1_level build them."""
     from btcs_pnes_optical_flow_tpu_torch.ops import cvx
     from btcs_pnes_optical_flow_tpu_torch.ops import tvl1 as tv
 
-    i0 = cvx.gaussian_blur_reflect101(prev.float() / 255.0, 5, 0.8)
-    i1 = cvx.gaussian_blur_reflect101(curr.float() / 255.0, 5, 0.8)
+    hh, ww = tv._pyramid_sizes(*prev.shape[1:], p)[level]
+    i0 = cvx.resize_bilinear_mm(cvx.gaussian_blur_reflect101(prev.float() / 255.0, 5, 0.8), hh, ww)
+    i1 = cvx.resize_bilinear_mm(cvx.gaussian_blur_reflect101(curr.float() / 255.0, 5, 0.8), hh, ww)
     src = torch.stack([i1, *tv._grad(i1)], dim=1)
-    u, v = flow[:, 0].contiguous(), flow[:, 1].contiguous()
+    scale = p.scale_step ** level
+    u, v = (cvx.resize_bilinear_mm(flow[:, k], hh, ww) * scale for k in range(2))
+    u, v = u.contiguous(), v.contiguous()
     return src, (u, v, *tv._linearise(i0, src, u, v, tv.warp_sample_cf_plain))
 
 
@@ -663,19 +754,19 @@ def phase_tvl1_kernels(tv_clip, device):
     p = tv.TVL1Params()
     prev = torch.as_tensor(tv_clip[:-1], device=device)
     curr = torch.as_tensor(tv_clip[1:], device=device)
-    # Realistic level-0 inputs: the plain path's flow for these pairs, the
-    # plain warp of (I1, I1x, I1y) there and the chain inputs built from it.
+    # Realistic inputs: the plain path's flow for these pairs, the plain warp
+    # of (I1, I1x, I1y) there and the chain inputs built from it.
     t0 = time.perf_counter()
     flow_plain = tv.tvl1_flow(prev, curr, p, kernels=False)
     torch.cuda.synchronize()
     print(f"plain path on the card: {time.perf_counter() - t0:.3f} s (first call)")
     flow_cf = flow_plain.movedim(-1, 1).contiguous()
-    src, planes = _tv_level0_planes(prev, curr, flow_cf)
-    chain = (*planes, p.n_iterations, p.tau, p.lambda_, p.theta)
+    src, planes = _tv_level_planes(prev, curr, flow_cf, 0, p)
+    args = (p.n_iterations, p.tau, p.lambda_, p.theta)
     calls = {
         "warp_sample": (lambda: tc.warp_sample_cf(src, flow_cf),
                         lambda: tv.warp_sample_cf_plain(src, flow_cf)),
-        "pd_chain": (lambda: tc.pd_chain(*chain), lambda: tv.pd_chain_plain(*chain)),
+        "pd_chain": (lambda: tc.pd_chain(*planes, *args), lambda: tv.pd_chain_plain(*planes, *args)),
     }
     rows = {}
     for name, kid, replaces, tol, why in TV_KERNELS:
@@ -684,7 +775,7 @@ def phase_tvl1_kernels(tv_clip, device):
                                      rtol=tol if rel else None,
                                      abs_tol=None if rel else tol, why=why)
     # K5's yardstick: grid_sample with border padding and align_corners
-    # samples at clamp(x + u, 0, w - 1), as K5 does.
+    # samples at clamp(x + u, 0, w - 1), as K5 does.  Alternating rounds.
     import torch.nn.functional as F
 
     xs = torch.arange(w, device=device, dtype=torch.float32)
@@ -697,16 +788,64 @@ def phase_tvl1_kernels(tv_clip, device):
                              align_corners=True)
 
     d_lib = float((sample() - tc.warp_sample_cf(src, flow_cf)).abs().max())
-    sample()
-    lib_ms = _median_ms(sample)
-    print(f"K5 library yardstick: F.grid_sample(bilinear, border, align_corners=True) on the "
-          f"same coordinates: {lib_ms:.4f} ms, max |grid_sample - kernel| {d_lib:.3e} (its "
-          f"own coordinate arithmetic)")
+    k5_ms, lib_rounds = [], []
+    for _ in range(3):
+        k5_ms.append(_median_ms(calls["warp_sample"][0]))
+        lib_rounds.append(_median_ms(sample))
+    lib_ms = statistics.median(lib_rounds)
+    print(f"K5 vs its library yardstick F.grid_sample(bilinear, border, align_corners=True) on "
+          f"the same coordinates, alternating rounds: K5 {[round(x, 4) for x in k5_ms]} ms, "
+          f"grid_sample {[round(x, 4) for x in lib_rounds]} ms; max |grid_sample - kernel| "
+          f"{d_lib:.3e} (its own coordinate arithmetic)")
     b, c = src.shape[:2]
     _set_bound(rows["warp_sample"], b * h * w, *_k5_cost(c), lib_ms)
     _set_bound(rows["pd_chain"], b * h * w, *_k6_cost(p.n_iterations), None,
                NO_LIBRARY["pd_chain"])
+    _k6_levels_and_depths(rows["pd_chain"], prev, curr, flow_cf, planes, p)
     return rows, flow_plain
+
+
+def _k6_levels_and_depths(row, prev, curr, flow_cf, planes0, p):
+    """K6 at every level of the clip's pyramid with the default schedule,
+    and at level 0 at every compiled depth (depth 1: one launch per
+    iteration, PR 2's structure); each run held bit-equal to the plain
+    chain."""
+    from btcs_pnes_optical_flow_tpu_torch.ops import tvl1 as tv
+    from btcs_pnes_optical_flow_tpu_torch.ops import tvl1_cuda as tc
+
+    args = (p.n_iterations, p.tau, p.lambda_, p.theta)
+    print(f"K6: {K6_OPS_PER_ITERATION} float32 operations per pixel and iteration, "
+          f"{K6_OPS_PER_CHAIN} per pixel and chain (the bound's count); default depth "
+          f"{tc.PD_DEPTH}, schedule {tc.pd_schedule(p.n_iterations)} for {p.n_iterations} "
+          f"iterations")
+
+    def held(pl, depth):
+        kern = torch.stack(tc.pd_chain(*pl, *args, depth=depth))
+        plain = torch.stack(tv.pd_chain_plain(*pl, *args))
+        err = float((kern - plain).abs().max())
+        if err != 0.0:
+            raise AssertionError(f"K6 at depth {depth}, {tuple(pl[0].shape)}: max err {err}")
+        return err
+
+    levels = {}
+    for level in range(len(tv._pyramid_sizes(*prev.shape[1:], p))):
+        pl = planes0 if level == 0 else _tv_level_planes(prev, curr, flow_cf, level, p)[1]
+        held(pl, tc.PD_DEPTH)
+        ms = statistics.median([_median_ms(lambda: tc.pd_chain(*pl, *args)) for _ in range(2)])
+        px = pl[0].numel()
+        bound = max(px * _k6_cost(p.n_iterations)[0] / HBM_BYTES_PER_S,
+                    px * _k6_cost(p.n_iterations)[1] / FP32_OPS_PER_S) * 1e3
+        levels[level] = ms
+        print(f"K6 level {level} {tuple(pl[0].shape)}: {ms:.4f} ms per chain, bound "
+              f"{bound:.4f} ms, share {100 * bound / ms:.1f}%, max_abs_err 0.0")
+    sweep = {}
+    for depth in tc.PD_DEPTHS:
+        held(planes0, depth)
+        sweep[depth] = statistics.median(
+            [_median_ms(lambda: tc.pd_chain(*planes0, *args, depth=depth)) for _ in range(2)])
+    print("K6 level-0 depth sweep (ms per chain, launches): " + ", ".join(
+        f"D={d}: {ms:.4f} ({len(tc.pd_schedule(p.n_iterations, d))})" for d, ms in sweep.items()))
+    row.update(level_ms=levels, depth_sweep_ms=sweep)
 
 
 def phase_tvl1_slice(tv_clip, device, smi, rows, flow_plain):
@@ -725,20 +864,24 @@ def phase_tvl1_slice(tv_clip, device, smi, rows, flow_plain):
     tc.reset_launch_counts()
     t0 = time.perf_counter()
     flow, clips = tv.tvl1_flow(prev, curr, p, return_clip=True)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
     flow_h, clips_h = flow.cpu(), clips.cpu()
     kern_s = time.perf_counter() - t0
     launches = dict(tc.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
 
-    n_lev = len(tv._pyramid_sizes(h, w, p))
-    n_warp = n_lev * p.n_warps
-    want = {"warp_sample": n_warp, "pd_chain": n_warp, "pd_iteration": n_warp * p.n_iterations}
-    print(f"launches: {launches} (expected {want}: {n_lev} levels x {p.n_warps} warps; "
-          f"each K6 chain is 1 invariants launch + {p.n_iterations} iteration launches)")
-    if launches != want:
+    sizes = tv._pyramid_sizes(h, w, p)
+    chains = sum(p.n_warps for s in sizes if tv._resident_ok(*s, p))
+    blocks = tc.pd_schedule(p.n_iterations)
+    want = {"warp_sample": len(sizes) * p.n_warps, "pd_chain": chains,
+            "pd_block": chains * len(blocks)}
+    print(f"launches: {launches} (expected {want}: {len(sizes)} levels x {p.n_warps} warps, "
+          f"{chains} chains on K6, each {len(blocks)} launches of depths {blocks})")
+    if launches != want or launches["pd_block"] >= chains * p.n_iterations:
         raise AssertionError("TV-L1 launch counts differ from the path's schedule")
     rows["warp_sample"]["launches"] = launches["warp_sample"]
-    rows["pd_chain"]["launches"] = launches["pd_chain"] + launches["pd_iteration"]
+    rows["pd_chain"]["launches"] = launches["pd_block"]
     if flow_h.shape != (TV_PAIRS, h, w, 2) or clips_h.shape != (TV_PAIRS,):
         raise AssertionError(f"flow {tuple(flow_h.shape)}, clips {tuple(clips_h.shape)}")
     if clips_h.dtype != torch.int32 or int(clips_h.abs().sum()) != 0:
@@ -771,10 +914,12 @@ def phase_tvl1_slice(tv_clip, device, smi, rows, flow_plain):
     if not d_small <= FLOW_TOL_PX:
         raise AssertionError("TV-L1 on the card disagrees with the CPU")
 
-    print(f"TV-L1 {kern_s:.4f} s for {TV_PAIRS} pairs ({TV_PAIRS / kern_s:.2f} frames/s), "
-          f"plain path {plain_s:.4f} s ({TV_PAIRS / plain_s:.2f} frames/s), "
-          f"peak {peak:.2f} GiB on [{smi}]")
-    return prev, curr, p
+    print(f"TV-L1 {kern_s:.4f} s for {TV_PAIRS} pairs with the flow copied to the host "
+          f"({TV_PAIRS / kern_s:.2f} frames/s), {card_s:.4f} s on the card, fenced by a "
+          f"synchronise ({TV_PAIRS / card_s:.2f} frames/s); plain path {plain_s:.4f} s "
+          f"({TV_PAIRS / plain_s:.2f} frames/s, copied to the host), peak {peak:.2f} GiB on "
+          f"[{smi}]")
+    return prev, curr, p, card_s
 
 
 def main():
@@ -799,9 +944,14 @@ def main():
                   lambda: roi_body_flow_seq(chunk, exd, eyd, masks, params))
     tv_clip = render_clip(TV_PAIRS + 1, seed=2)
     tv_rows, tv_flow_plain = phase_tvl1_kernels(tv_clip, device)
-    prev, curr, tv_params = phase_tvl1_slice(tv_clip, device, smi, tv_rows, tv_flow_plain)
-    phase_profile(f"== 7b. TV-L1 device time by kernel, {TV_PAIRS} pairs",
-                  lambda: tvl1_flow(prev, curr, tv_params))
+    prev, curr, tv_params, tv_wall = phase_tvl1_slice(tv_clip, device, smi, tv_rows,
+                                                      tv_flow_plain)
+    tv_busy = phase_profile(f"== 7b. TV-L1 device time by kernel, {TV_PAIRS} pairs",
+                            lambda: tvl1_flow(prev, curr, tv_params), host_top=10)
+    if tv_busy is not None:
+        print(f"TV-L1 device busy share: {tv_busy:.3f} ms of kernel time in one call against "
+              f"{1e3 * tv_wall:.3f} ms on the card (fenced) in phase 7's unprofiled call: "
+              f"{100 * tv_busy / (1e3 * tv_wall):.1f}% on [{smi}]")
     rows.update(tv_rows)
     flow_p = phase_pipeline(clip, device, smi, rows, full_feats)
     phase_profile("== 8b. device time by kernel, one ROI-dispatched chunk",

@@ -305,8 +305,11 @@ def test_run_full_writes_its_csvs_on_the_card(card, tmp_path):
         assert np.array_equal(num(sm[1][2 + i]), float(getattr(mets[0], f)), equal_nan=True)
 
 
-# TV-L1: odd sizes, a width past one tile row, B > 1.
+# TV-L1: odd sizes, a width past one tile row, B > 1; for K6 also a shape
+# of several 32×64 tiles in both directions, for K5 a width of whole
+# 128-pixel warp segments (the others end in a partial one).
 TV_SHAPES = [(3, 7, 9), (2, 45, 67), (2, 33, 250)]
+PD_SHAPES = TV_SHAPES + [(2, 100, 200)]
 
 
 def _flow_off_every_edge(b, h, w, seed):
@@ -321,8 +324,8 @@ def _flow_off_every_edge(b, h, w, seed):
     return torch.as_tensor(flow)
 
 
-@pytest.mark.parametrize("shape", TV_SHAPES)
-@pytest.mark.parametrize("c", [3, 1])
+@pytest.mark.parametrize("shape", TV_SHAPES + [(2, 20, 256)])
+@pytest.mark.parametrize("c", [3, 1, 2])
 def test_warp_sample_kernel(card, shape, c):
     b, h, w = shape
     src = _img((b, c, h, w), 7).to(card) / 255.0
@@ -331,7 +334,8 @@ def test_warp_sample_kernel(card, shape, c):
     kern = tc.warp_sample_cf(src, flow)
     assert tc.LAUNCHES["warp_sample"] == 1
     plain = tv.warp_sample_cf_plain(src, flow)
-    # The plain float32 operations in their order, without FMA contraction.
+    # The plain float32 operations in their order, without FMA contraction
+    # (C = 2 runs the run-time channel instance).
     assert _rel(kern, plain) <= 1e-5
 
 
@@ -347,20 +351,43 @@ def _chain_planes(shape, seed, card):
     return tuple(t.to(card) for t in planes)
 
 
-@pytest.mark.parametrize("shape", TV_SHAPES)
-@pytest.mark.parametrize("n_iterations", [0, 1, 8, 30])
-def test_pd_chain_kernel(card, shape, n_iterations):
-    planes = _chain_planes(shape, 9, card)
+def _check_chain(planes, n_iterations, depth=tc.PD_DEPTH):
     p = tv.TVL1Params()
     tc.reset_launch_counts()
-    kern = tc.pd_chain(*planes, n_iterations, p.tau, p.lambda_, p.theta)
-    chains = int(n_iterations > 0)
-    assert tc.LAUNCHES == {"warp_sample": 0, "pd_chain": chains, "pd_iteration": n_iterations}
+    kern = tc.pd_chain(*planes, n_iterations, p.tau, p.lambda_, p.theta, depth=depth)
+    blocks = len(tc.pd_schedule(n_iterations, depth))
+    assert tc.LAUNCHES == {"warp_sample": 0, "pd_chain": int(blocks > 0), "pd_block": blocks}
     plain = tv.pd_chain_plain(*planes, n_iterations, p.tau, p.lambda_, p.theta)
     for k, q in zip(kern, plain):
-        assert k.shape == shape and torch.isfinite(k).all()
-        # One chain's px bar; the same operations without FMA contraction.
-        assert float((k - q).abs().max()) <= 1e-4
+        assert k.shape == planes[0].shape and torch.isfinite(k).all()
+        # Bit-equal: the plain factored operations in their order, without
+        # FMA contraction, on tiles whose halos are recomputed exactly.
+        assert torch.equal(k, q)
+
+
+@pytest.mark.parametrize("shape", PD_SHAPES)
+@pytest.mark.parametrize("n_iterations", [0, 1, 7, 8, 30])
+def test_pd_chain_kernel(card, shape, n_iterations):
+    _check_chain(_chain_planes(shape, 9, card), n_iterations)
+
+
+@pytest.mark.parametrize("depth", tc.PD_DEPTHS)
+def test_pd_chain_every_depth(card, depth):
+    """Each compiled depth once, on several tiles in both directions, with a
+    remainder launch (23 is no multiple of 2 … 10)."""
+    _check_chain(_chain_planes((2, 100, 200), 12, card), 23, depth)
+
+
+def test_tvl1_kernels_take_a_batch_above_the_grid_z_limit(card):
+    """K5's flat grid and K6's persistent blocks cover a batch past 65535
+    frames to its end."""
+    b, h, w = 70000, 3, 6
+    src = _img((b, 3, h, w), 23).to(card) / 255.0
+    flow = _flow_off_every_edge(b, h, w, 24).to(card)
+    kern = tc.warp_sample_cf(src, flow)
+    assert _rel(kern, tv.warp_sample_cf_plain(src, flow)) <= 1e-5
+    assert torch.isfinite(kern[-1]).all()
+    _check_chain(_chain_planes((b, h, w), 25, card), 5, 2)
 
 
 def test_tvl1_flow_kernels_match_plain(card):
@@ -372,7 +399,8 @@ def test_tvl1_flow_kernels_match_plain(card):
     p = tv.TVL1Params(n_scales=2, n_warps=3, n_iterations=10)
     tc.reset_launch_counts()
     kern, clips = tv.tvl1_flow(prev, curr, p, return_clip=True)
-    assert tc.LAUNCHES == {"warp_sample": 6, "pd_chain": 6, "pd_iteration": 60}
+    assert tc.LAUNCHES == {"warp_sample": 6, "pd_chain": 6,
+                           "pd_block": 6 * len(tc.pd_schedule(p.n_iterations))}
     assert clips.tolist() == [0, 0]
     plain = tv.tvl1_flow(prev, curr, p, kernels=False)
     assert float((kern - plain).abs().max()) <= 1e-3  # the path's px bar
@@ -392,3 +420,5 @@ def test_tvl1_wrappers_reject_bad_inputs(card):
         tc.pd_chain(*planes[:5], planes[5][:1], 4, 0.25, 0.3, 0.3)
     with pytest.raises(ValueError):
         tc.pd_chain(*planes[:5], planes[5].cpu(), 4, 0.25, 0.3, 0.3)
+    with pytest.raises(ValueError):  # no compiled instance of that depth
+        tc.pd_chain(*planes, 4, 0.25, 0.3, 0.3, depth=11)

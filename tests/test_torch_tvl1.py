@@ -174,6 +174,155 @@ def test_tvl1_recovers_translation(rng):
         assert epe < 0.25, (pd, epe)
 
 
+RESOLUTION_SHAPES = [(480, 640), (540, 960), (720, 1280), (1080, 1920), (112, 896),
+                     (128, 1024)]
+
+
+@pytest.mark.parametrize("shape", RESOLUTION_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_pd_engine_resolution_per_level_matches_jax(shape):
+    """The fixed-length chain is narrowed per pyramid level exactly as JAX
+    ``ops/tvl1.py:177`` narrows its resident engine."""
+    for n in (8, 30, 60):
+        mine_p, ref_p = ttv.TVL1Params(n_iterations=n), jtv.TVL1Params(n_iterations=n)
+        sizes = ttv._pyramid_sizes(*shape, mine_p)
+        assert sizes == jtv._pyramid_sizes(*shape, ref_p)
+        for h, w in sizes:
+            assert ttv._resident_ok(h, w, mine_p) == jtv._resident_ok(h, w, ref_p), (h, w, n)
+    # At the default 30 iterations, the levels that take the epsilon loop.
+    p = ttv.TVL1Params()
+    falls = [i for i, s in enumerate(ttv._pyramid_sizes(*shape, p)) if not ttv._resident_ok(*s, p)]
+    assert falls == {(540, 960): [0], (720, 1280): [0], (1080, 1920): [0, 1],
+                     (112, 896): [0], (128, 1024): [0]}.get(shape, [])
+
+
+def test_tvl1_flow_resident_falls_back_per_level_as_jax(rng, monkeypatch):
+    """At 112×896 the JAX package runs its epsilon loop even when asked for
+    the resident engine (no Pallas call); the port takes the same loop
+    there, and the fixed-length chain one level down."""
+    f0 = _texture(112, 896, rng)
+    f1 = _texture(112, 896, rng, shift=(0.8, 0.4))
+    kw = dict(pd_engine="resident", n_scales=1, n_warps=1)
+    ref = np.asarray(jtv.tvl1_flow(jnp.asarray(f0), jnp.asarray(f1), jtv.TVL1Params(**kw)))
+    mine = ttv.tvl1_flow(torch.as_tensor(f0), torch.as_tensor(f1), ttv.TVL1Params(**kw))
+    assert mine.shape == (112, 896, 2)
+    # Default epsilon: the early exit's mean is taken in another order; the
+    # flow's px bar.
+    assert np.abs(mine.numpy() - ref).max() <= 1e-3
+    # Which levels reach the chain's wrapper: only 56×448 of two levels.
+    chain, shapes = tvl1_cuda.pd_chain, []
+    monkeypatch.setattr(tvl1_cuda, "pd_chain",
+                        lambda u, *a, **k: shapes.append(tuple(u.shape)) or chain(u, *a, **k))
+    ttv.tvl1_flow(torch.as_tensor(f0), torch.as_tensor(f1),
+                  ttv.TVL1Params(pd_engine="resident", n_scales=2, n_warps=2))
+    assert shapes == [(1, 56, 448)] * 2
+
+
+def _blocked_chain(planes, n_iterations, p, depth, tile):
+    """K6's decomposition (csrc/tvl1.cu pd_block_kernel) in plain PyTorch:
+    each launch of ``pd_schedule`` stages every tile grown by its depth d
+    on each side (clamped loads), runs d iterations on that region with
+    the edge rules at the image's edges by global index, a neighbour past
+    the region's edge replaced by any value (here the pixel itself; the
+    kernel reads the next or previous row), and only the kernel's
+    rows computed (u, v on rows j … RH−j, the duals on rows j … RH−1−j at
+    iteration j), then crops the tile and stitches it into the next
+    launch's state."""
+    u, v, rho_c, i1wx, i1wy, grad_sq = planes
+    b, h, w = u.shape
+    th, tw = tile
+    l_t, tau_theta, theta = p.lambda_ * p.theta, p.tau / p.theta, p.theta
+    duals = None  # zero in the first launch
+    for d in tvl1_cuda.pd_schedule(n_iterations, depth):
+        new = [torch.empty_like(u) for _ in range(6)]
+        for ty0 in range(0, h, th):
+            for tx0 in range(0, w, tw):
+                gy = torch.arange(ty0 - d, ty0 + th + d)
+                gx = torch.arange(tx0 - d, tx0 + tw + d)
+                ry, rx = gy.clamp(0, h - 1), gx.clamp(0, w - 1)
+
+                def crop(t):
+                    return t[:, ry][:, :, rx]
+
+                uu, vv, rc, wx, wy, gs = map(crop, (u, v, rho_c, i1wx, i1wy, grad_sq))
+                ps = [crop(q) for q in duals] if duals else [torch.zeros_like(uu)] * 4
+                nig = -1.0 / torch.clamp_min(gs, 1e-9)
+                wx_igs, wy_igs = wx * nig, wy * nig
+                yy, xx = gy[:, None], gx[None, :]
+                rows = torch.arange(len(gy))[:, None]
+
+                def div(px, py):
+                    left = torch.cat([px[..., :1], px[..., :-1]], -1)
+                    up = torch.cat([py[..., :1, :], py[..., :-1, :]], -2)
+                    dx = torch.where(xx == 0, px, torch.where(xx == w - 1, 0.0, px) - left)
+                    dy = torch.where(yy == 0, py, torch.where(yy == h - 1, 0.0, py) - up)
+                    return dx + dy
+
+                def grad(f):
+                    right = torch.cat([f[..., 1:], f[..., -1:]], -1)
+                    down = torch.cat([f[..., 1:, :], f[..., -1:, :]], -2)
+                    return (torch.where(xx < w - 1, right - f, 0.0),
+                            torch.where(yy < h - 1, down - f, 0.0))
+
+                rh = len(gy)
+                for j in range(1, d + 1):
+                    rho = rc + wx * uu + wy * vv
+                    lo = rho < -l_t * gs
+                    hi = rho > l_t * gs
+                    d1 = torch.where(lo, l_t * wx, torch.where(hi, -l_t * wx, rho * wx_igs))
+                    d2 = torch.where(lo, l_t * wy, torch.where(hi, -l_t * wy, rho * wy_igs))
+                    rows_a = (rows >= j) & (rows <= rh - j)
+                    uu = torch.where(rows_a, uu + d1 + theta * div(ps[0], ps[1]), uu)
+                    vv = torch.where(rows_a, vv + d2 + theta * div(ps[2], ps[3]), vv)
+                    ux, uy = grad(uu)
+                    vx, vy = grad(vv)
+                    r_u = 1.0 / (1.0 + tau_theta * torch.sqrt(ux * ux + uy * uy))
+                    r_v = 1.0 / (1.0 + tau_theta * torch.sqrt(vx * vx + vy * vy))
+                    upd = ((ps[0] + tau_theta * ux) * r_u, (ps[1] + tau_theta * uy) * r_u,
+                           (ps[2] + tau_theta * vx) * r_v, (ps[3] + tau_theta * vy) * r_v)
+                    rows_b = (rows >= j) & (rows <= rh - 1 - j)
+                    ps = [torch.where(rows_b, n_, o_) for n_, o_ in zip(upd, ps)]
+                hh, ww = min(th, h - ty0), min(tw, w - tx0)
+                for dst, src in zip(new, (uu, vv, *ps)):
+                    dst[:, ty0:ty0 + hh, tx0:tx0 + ww] = src[:, d:d + hh, d:d + ww]
+        u, v, duals = new[0], new[1], new[2:]
+    return u, v
+
+
+@pytest.mark.parametrize("shape,tile,depth,n_iterations", [
+    ((2, 45, 67), (8, 16), 3, 7),      # ragged tiles; D does not divide n
+    ((2, 45, 67), (11, 22), 2, 5),     # last tiles one pixel wide, next to the edges
+    ((2, 45, 67), (15, 67), 4, 8),     # tile edges on the image edges; D divides n
+    ((2, 45, 67), (8, 16), 1, 3),      # the depth of one iteration per launch
+    ((1, 33, 250), (32, 64), 8, 30),   # the kernel's tile and the default schedule
+    ((1, 33, 250), (32, 64), 10, 7),   # D > n: one launch of n
+], ids=["ragged", "edge_next", "edge_on", "depth1", "default", "depth_past_n"])
+def test_blocked_chain_emulation_equals_plain(shape, tile, depth, n_iterations, rng):
+    """The temporal blocking of K6 proves its halo on the CPU: tiles grown
+    by the launch's depth, D iterations, cropped and stitched, give the
+    plain chain bit for bit."""
+    b, h, w = shape
+    planes = tuple(map(torch.as_tensor, _chain_inputs(rng, b, h, w)))
+    p = ttv.TVL1Params()
+    ref = ttv.pd_chain_plain(*planes, n_iterations, p.tau, p.lambda_, p.theta)
+    mine = _blocked_chain(planes, n_iterations, p, depth, tile)
+    assert torch.equal(mine[0], ref[0]) and torch.equal(mine[1], ref[1])
+
+
+def test_pd_schedule():
+    assert tvl1_cuda.pd_schedule(30) == (8, 8, 8, 6)
+    assert tvl1_cuda.pd_schedule(30, 10) == (10, 10, 10)
+    assert tvl1_cuda.pd_schedule(7, 8) == (7,)
+    assert tvl1_cuda.pd_schedule(0) == () == tvl1_cuda.pd_schedule(-3, 1)
+    for depth in tvl1_cuda.PD_DEPTHS:
+        for n in range(0, 61):
+            s = tvl1_cuda.pd_schedule(n, depth)
+            assert sum(s) == n and len(s) == -(-n // depth)
+            assert all(1 <= d <= depth for d in s) and list(s) == sorted(s, reverse=True)
+    for bad in (0, 11, 16):
+        with pytest.raises(ValueError):
+            tvl1_cuda.pd_schedule(30, bad)
+
+
 def test_engine_names():
     f = torch.zeros((20, 24), dtype=torch.uint8)
     for bad in (dict(warp_engine="gather"), dict(pd_engine="pallas")):
