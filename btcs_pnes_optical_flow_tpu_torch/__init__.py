@@ -1,16 +1,18 @@
 """btcs_pnes_optical_flow_tpu_torch — the PyTorch + CUDA port.
 
 The production pipeline of ``btcs_pnes_optical_flow_tpu`` (decode →
-ROI-dispatched Farnebäck flow → PC1 → metrics) and its TV-L1 flow engine,
-written in PyTorch with hand-written CUDA kernels for Hopper (``csrc/``).
+ROI-dispatched Farnebäck flow → PC1 → metrics), its TV-L1 flow engine,
+cohort runner, streaming PC1 and reference-compatible CLIs, written in
+PyTorch with hand-written CUDA kernels for Hopper (``csrc/``).
 The JAX package stays the reference; this package imports nothing of it
 (nor jax, pandas or cv2 on its main path).
 
 Layout
 ------
-- ``dataio``  video sources and chunked prefetch (``video``, ``codecs``),
-              the reference's file contracts with pandas-free CSV writers
-              (``contracts``) and chunk checkpoints (``checkpoint``).
+- ``dataio``  video sources and chunked prefetch (``video``, ``codecs``,
+              ``native``), the reference's file contracts with pandas-free
+              CSV readers and writers (``contracts``) and chunk
+              checkpoints (``checkpoint``).
 - ``ops``     compute primitives: OpenCV-exact image ops (``cvx``), the
               Farnebäck engine with ROI dispatch (``farneback``) and its
               CUDA kernels (``farneback_cuda``), the TV-L1 engine
@@ -20,9 +22,15 @@ Layout
               sliding-window PCA (``pca``), peak detection (``peaks``) and
               rank statistics (``stats``).
 - ``models``  pipeline stages: ROI flow features (``flow``), the PC1 head
-              (``pc1``), the metric head (``metrics``) and the end-to-end
-              orchestrator (``pipeline``).
-- ``utils``   logger, stage timers and profiler traces (``timing``).
+              (``pc1``), the metric head (``metrics``), the end-to-end
+              orchestrator (``pipeline``) and chunked PC1 (``streaming``).
+- ``parallel`` cohorts on the card: the device (``mesh``), the batched
+              cohort flow stage (``cohort``) and ``run_cohort``
+              (``runner``).
+- ``compat``  the reference's three scripts (optical_flow, optical_PCA,
+              optical_PC1) with their call signatures and files.
+- ``utils``   the device an entry point runs on (``device``), logger,
+              stage timers and profiler traces (``timing``).
 - ``csrc``    CUDA C++ sources of the kernels.
 """
 

@@ -10,11 +10,15 @@ writes the same files with the ``csv`` module:
   mag_body (optical_flow.py:255-259).
 - ``flow_pc1.csv``: t_sec, pc1_dyn (optical_PCA.py:270).
 - ``flow_summary_dyn_core.csv``: one row, 8 columns
-  (optical_PC1.py:285-299).
+  (optical_PC1.py:285-299);
+- the cohort table: one row per (video, ROI), the summary's columns with
+  the video, ROI, status and error of each row (``parallel/runner.py``).
 
 The bytes equal ``DataFrame.to_csv(index=False)`` of the JAX contracts'
-frames: integer columns as integers, float64 values in their shortest
-round-trip form (``repr``), NaN as an empty field, ``\\n`` line ends.
+frames and of the JAX cohort runner's table: integer columns as integers,
+float64 values in their shortest round-trip form (``repr``), NaN as an
+empty field, text quoted only where it holds a comma, a quote or a line
+break, ``\\n`` line ends.  The readers return a dict of NumPy columns.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ SUMMARY_COLUMNS = [
     "Kendall_p_0_10",
     "Peak_n",
 ]
+COHORT_COLUMNS = ["video", "roi"] + SUMMARY_COLUMNS + ["status", "error"]
 
 
 class Skeleton(NamedTuple):
@@ -100,3 +105,41 @@ def write_summary_csv(path: str, metrics, window_sec: float = 10.0,
     row = [[source], [window_sec], [metrics.pc1_area], [metrics.ads_slope], [metrics.ads_r2],
            [metrics.kendall_tau], [metrics.kendall_p], [metrics.peak_n]]
     _write(path, SUMMARY_COLUMNS, row, "sffffffi")
+
+
+def write_cohort_csv(path: str, rows: Sequence[dict]) -> None:
+    """The cohort table, as the JAX runner's
+    ``pd.DataFrame(rows).to_csv(path, index=False)``."""
+    cols = [[row[c] for row in rows] for c in COHORT_COLUMNS]
+    _write(path, COHORT_COLUMNS, cols, "sis" + "f" * 6 + "iis")
+
+
+def _column(values):
+    """A CSV column as pandas reads it: int64 when every field is an
+    integer, float64 when every field is a number or empty (NaN), else text."""
+    for parse, dtype in ((int, np.int64), (lambda v: float(v) if v else math.nan, np.float64)):
+        try:
+            return np.array([parse(v) for v in values], dtype=dtype)
+        except ValueError:
+            pass
+    return np.array(values, dtype=object)
+
+
+def _read(path: str, required) -> dict:
+    with open(path, newline="") as f:
+        header, *rows = list(csv.reader(f))
+    missing = [c for c in sorted(required) if c not in header]
+    if missing:
+        raise KeyError(
+            f"Missing columns in {path}. Required={sorted(required)}, missing={missing}.")
+    return {name: _column([r[i] for r in rows]) for i, name in enumerate(header)}
+
+
+def read_flow_csv(path: str) -> dict:
+    """flow.csv as {column: array}; KeyError without t_sec, vx_body, vy_body."""
+    return _read(path, {"t_sec", "vx_body", "vy_body"})
+
+
+def read_pc1_csv(path: str, pc1_col: str = "pc1_dyn") -> dict:
+    """flow_pc1.csv as {column: array}; KeyError without t_sec and ``pc1_col``."""
+    return _read(path, {"t_sec", pc1_col})

@@ -23,6 +23,7 @@ import threading
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
+import torch
 
 from btcs_pnes_optical_flow_tpu_torch.ops.cvx import bgr2gray_u8_np
 
@@ -169,6 +170,10 @@ def open_source(path_or_array, fps: Optional[float] = None) -> VideoSource:
     last resort."""
     if isinstance(path_or_array, np.ndarray):
         return ArraySource(path_or_array, fps or 30.0)
+    if isinstance(path_or_array, torch.Tensor) and path_or_array.ndim == 3:
+        # A clip on the card is read back once here; the batched cohort
+        # path (parallel/cohort.py) keeps such clips on the device.
+        return ArraySource(path_or_array.cpu().numpy(), fps or 30.0)
     if hasattr(path_or_array, "__array__") and getattr(path_or_array, "ndim", 0) == 3:
         return ArraySource(np.asarray(path_or_array), fps or 30.0)
     p = str(path_or_array)
@@ -180,7 +185,8 @@ def open_source(path_or_array, fps: Optional[float] = None) -> VideoSource:
 
     try:
         return open_codec_source(p, fallback_fps=fps or 30.0)
-    except (RuntimeError, OSError, ValueError):  # no cv2-free decoder fits
+    except Exception:  # any failure of a cv2-free decoder (a probe timeout,
+        # a truncated container header) falls back, as in the JAX package
         return OpenCVSource(p, fallback_fps=fps or 30.0)
 
 

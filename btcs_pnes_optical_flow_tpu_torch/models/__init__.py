@@ -5,4 +5,5 @@
 - ``pc1``  — band-pass + sliding-window PCA → dynamic PC1 waveform.
 - ``metrics`` — PC1 waveform → AUC / amplitude-decay slope / Kendall τ.
 - ``pipeline`` — video → flow features → PC1 → metrics (``run_full``).
+- ``streaming`` — overlap-save chunked PC1 for long recordings.
 """

@@ -1,17 +1,22 @@
-"""IIR band-pass filtering in PyTorch.
+"""IIR band-pass filtering and moving averages in PyTorch.
 
-Port of ``btcs_pnes_optical_flow_tpu/ops/filters.py``'s band-pass path:
+Port of ``btcs_pnes_optical_flow_tpu/ops/filters.py``:
 
-- ``sosfilt`` / ``sosfiltfilt`` ↔ scipy.signal.sosfilt / sosfiltfilt,
-  as a sequential biquad recurrence (transposed direct form II) over the
-  last axis, batched over every leading axis;
+- ``sosfilt`` / ``sosfiltfilt`` ↔ scipy.signal.sosfilt / sosfiltfilt over
+  the last axis, batched over every leading axis, with two engines:
+  ``"scan"``, the sequential biquad recurrence (transposed direct form II,
+  a Python loop of one small tensor step per sample), and ``"assoc"``, a
+  log-depth doubling scan of each section's complex pole-coordinate
+  recurrence (the JAX package's ``lax.associative_scan`` engine);
 - ``bandpass_nanrobust`` ↔ the reference's per-finite-run zero-phase
   filtering (optical_PCA.py:96-121) in fixed shapes: up to ``max_runs``
-  runs per signal are gathered into staging rows and filtered together.
+  runs per signal are gathered into staging rows and filtered together;
+- ``uniform_filter1d_nearest`` / ``smooth_ma_nan`` ↔
+  scipy.ndimage.uniform_filter1d(mode="nearest") and the NaN-tolerant
+  moving average built on it (optical_PC1.py:55-76).
 
-The recurrence is a Python loop over samples, one small tensor step per
-sample for all runs and signals at once.  The JAX package's
-log-depth associative-scan engine (``engine="assoc"``) is not ported.
+``"assoc"`` is the default of the filters here, as in the JAX package;
+the PC1 head (``models/pc1.py``) passes ``"scan"``, as the JAX one does.
 ``smooth_window_len`` is the metric head's window rule.
 """
 
@@ -39,15 +44,74 @@ def _section_scan(b0, b1, b2, a1, a2, x: torch.Tensor, zi: torch.Tensor):
     return torch.stack(ys, dim=-1), torch.stack([z1, z2], dim=-1)
 
 
+def _section_assoc(b0, b1, b2, a1, a2, x: torch.Tensor, zi: torch.Tensor):
+    """One biquad section over the last axis of x in pole coordinates.
+
+    The state s_n = [z1, z2] obeys s_{n+1} = M s_n + c_n with
+    M = [[-a1, 1], [-a2, 0]], whose eigenvalues are the section's poles p,
+    p̄.  Products of the non-normal M grow transiently for poles near the
+    unit circle, so scanning the 2×2 affine maps is unstable in float32.
+    With the left eigenvector w = [p, 1], the scalar mode d_n = p·z1_n + z2_n
+    obeys d_{n+1} = p·d_n + γ·x_n, a well-conditioned complex scalar
+    recurrence; its prefix maps (g, t) ↦ d = g·d_0 + t are composed by a
+    doubling scan in log2(N) steps, as real and imaginary float32 planes.
+    The state comes back as z1 = 2·Re(d/κ), z2 = 2·Re(d·v2/κ) with
+    κ = (p² − a2)/p and v2 = −a2/p.  Real poles (a1² ≥ 4·a2) take the
+    sequential scan.
+    """
+    disc = a1 * a1 - 4.0 * a2
+    if disc >= 0.0:
+        return _section_scan(b0, b1, b2, a1, a2, x, zi)
+    p = complex(-a1 / 2.0, math.sqrt(-disc) / 2.0)
+    gamma = (b1 - a1 * b0) * p + (b2 - a2 * b0)
+    inv_kappa = 1.0 / ((p * p - a2) / p)
+    v2_over_kappa = (-a2 / p) * inv_kappa
+
+    d0_re = (p.real * zi[..., 0] + zi[..., 1])[..., None]
+    d0_im = (p.imag * zi[..., 0])[..., None]
+    g_re = torch.full_like(x, p.real)
+    g_im = torch.full_like(x, p.imag)
+    t_re = gamma.real * x
+    t_im = gamma.imag * x
+    n = x.shape[-1]
+    k = 1
+    while k < n:
+        # Element i takes the composition of element i - k (earlier) then i.
+        g1r, g1i, t1r, t1i = (v[..., :-k] for v in (g_re, g_im, t_re, t_im))
+        g2r, g2i, t2r, t2i = (v[..., k:] for v in (g_re, g_im, t_re, t_im))
+        g_re, g_im, t_re, t_im = (
+            torch.cat([v[..., :k], c], dim=-1) for v, c in (
+                (g_re, g2r * g1r - g2i * g1i),
+                (g_im, g2r * g1i + g2i * g1r),
+                (t_re, g2r * t1r - g2i * t1i + t2r),
+                (t_im, g2r * t1i + g2i * t1r + t2i)))
+        k *= 2
+    # d_{n+1} = g_cum[n]·d_0 + t_cum[n]
+    dn_re = g_re * d0_re - g_im * d0_im + t_re
+    dn_im = g_re * d0_im + g_im * d0_re + t_im
+    d_re = torch.cat([d0_re, dn_re[..., :-1]], dim=-1)
+    d_im = torch.cat([d0_im, dn_im[..., :-1]], dim=-1)
+    y = b0 * x + 2.0 * (d_re * inv_kappa.real - d_im * inv_kappa.imag)
+    last_re, last_im = dn_re[..., -1], dn_im[..., -1]
+    z1f = 2.0 * (last_re * inv_kappa.real - last_im * inv_kappa.imag)
+    z2f = 2.0 * (last_re * v2_over_kappa.real - last_im * v2_over_kappa.imag)
+    return y, torch.stack([z1f, z2f], dim=-1)
+
+
+_SECTIONS = {"scan": _section_scan, "assoc": _section_assoc}
+
+
 def sosfilt(sos, x: torch.Tensor, zi: torch.Tensor,
-            engine: str = "scan") -> Tuple[torch.Tensor, torch.Tensor]:
+            engine: str = "assoc") -> Tuple[torch.Tensor, torch.Tensor]:
     """Cascade of second-order sections over the last axis of x.
 
     sos: (S, 6) host coefficients (a0 == 1).  zi: (..., S, 2) initial
-    conditions, broadcast against x's leading axes.  Returns (y, zf).
+    conditions, broadcast against x's leading axes.  engine: "scan"
+    (sequential) or "assoc" (log-depth, pole coordinates).  Returns (y, zf).
     """
-    if engine != "scan":
-        raise NotImplementedError(f"sosfilt engine {engine!r} is not ported; use 'scan'")
+    if engine not in _SECTIONS:
+        raise ValueError(f"sosfilt engine must be one of {sorted(_SECTIONS)}, got {engine!r}")
+    section = _SECTIONS[engine]
     sos = np.asarray(sos, dtype=np.float64)
     zi = zi.expand(x.shape[:-1] + zi.shape[-2:])
     v = x
@@ -55,7 +119,7 @@ def sosfilt(sos, x: torch.Tensor, zi: torch.Tensor,
     for s in range(sos.shape[0]):
         b0, b1, b2 = float(sos[s, 0]), float(sos[s, 1]), float(sos[s, 2])
         a1, a2 = float(sos[s, 4]), float(sos[s, 5])
-        v, z = _section_scan(b0, b1, b2, a1, a2, v, zi[..., s, :])
+        v, z = section(b0, b1, b2, a1, a2, v, zi[..., s, :])
         zf.append(z)
     return v, torch.stack(zf, dim=-2)
 
@@ -68,7 +132,7 @@ def odd_ext(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def sosfiltfilt(sos, x: torch.Tensor, zi: torch.Tensor, padlen: int,
-                engine: str = "scan") -> torch.Tensor:
+                engine: str = "assoc") -> torch.Tensor:
     """Zero-phase forward-backward SOS filtering with odd padding
     (scipy.signal.sosfiltfilt(sos, x, padlen=padlen)) over the last axis."""
     ext = odd_ext(x, padlen) if padlen > 0 else x
@@ -155,7 +219,7 @@ def _filtfilt_runs(sos, zi: torch.Tensor, x: torch.Tensor, start: torch.Tensor,
 
 
 def bandpass_nanrobust(x: torch.Tensor, sos, zi: torch.Tensor, padreq: int,
-                       max_runs: int = 64, engine: str = "scan") -> torch.Tensor:
+                       max_runs: int = 64, engine: str = "assoc") -> torch.Tensor:
     """Zero-phase band-pass per contiguous finite run, over the last axis.
 
     Behavioral contract (optical_PCA.py:96-121): runs shorter than
@@ -186,6 +250,28 @@ def make_bandpass(low_hz: float, high_hz: float, fs: float, order: int = 4,
     zi_np = design.sosfilt_zi(sos_np).astype(dtype)
     padreq = design.sos_required_padlen(sos_np)
     return sos_np, zi_np, padreq
+
+
+def uniform_filter1d_nearest(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Centered box mean over the last axis, edge-replicated
+    (mode="nearest"), origin 0: the window of index i covers the offsets
+    [-(size//2), size - size//2 - 1]."""
+    left = size // 2
+    right = size - left - 1
+    xp = torch.cat([x[..., :1].expand(x.shape[:-1] + (left,)), x,
+                    x[..., -1:].expand(x.shape[:-1] + (right,))], dim=-1)
+    return xp.unfold(-1, size, 1).sum(-1) / size
+
+
+def smooth_ma_nan(x: torch.Tensor, k: int) -> torch.Tensor:
+    """NaN-tolerant moving average of odd window length ``k`` over the last
+    axis (optical_PC1.py:55-76; the reference computes k as
+    ``ensure_odd(max(1, round(fs * sec)))``)."""
+    valid = torch.isfinite(x)
+    num = uniform_filter1d_nearest(torch.where(valid, x, torch.zeros_like(x)), k)
+    den = uniform_filter1d_nearest(valid.to(x.dtype), k)
+    y = num / torch.clamp(den, min=1e-12)
+    return torch.where(den < 1e-12, torch.full_like(y, float("nan")), y)
 
 
 def ensure_odd(n: int) -> int:

@@ -1,6 +1,7 @@
 """Drive the PyTorch port's paths once on one CUDA card: flow + PC1
-(Farnebäck), the TV-L1 flow engine, and the production pipeline run_full
-(decode → ROI-dispatched flow → PC1 → metrics).
+(Farnebäck), the TV-L1 flow engine, the production pipeline run_full
+(decode → ROI-dispatched flow → PC1 → metrics), the cohort runner, the
+reference-compatible CLIs and streaming PC1.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -15,10 +16,10 @@ Phases (any failed check raises, so the exit code is non-zero):
              a seeded random half of all tiles) against their plain PyTorch
              versions on bench frames at 480×640, B = 8, with CUDA-event
              medians of both; K3's box mode against its plain version; then
-             (3b) K1, K4 over the ROI box's tiles and K3 (full frame and box
-             mode) at the main path's shape, one 257-frame chunk at level 0,
-             with K1's one-call yardstick (F.conv2d with the five folded
-             11×11 filters);
+             (3b) K1, K2, K4 over the ROI box's tiles and K3 (full frame and
+             box mode) at the main path's shape, one 257-frame chunk at
+             level 0, with K1's one-call yardstick (F.conv2d with the five
+             folded 11×11 filters);
 4. slice   — the bench clip's 512 pairs as two 257-frame chunks through
              roi_body_flow_seq and then pc1_from_flow, with the launch
              counts, the kernel path against the plain path (on the card
@@ -44,7 +45,23 @@ Phases (any failed check raises, so the exit code is non-zero):
              launches against the schedule derived from the ROI boxes, ROI
              features against phase 4's full-frame ones, PC1 and metrics on
              the card against the CPU, stage times and ROI-frames/s from
-             decode, then device time by kernel over one ROI-dispatched chunk.
+             decode, then device time by kernel over one ROI-dispatched chunk;
+9. cohort  — run_cohort at the JAX bench's cohort size (32 clips of 129
+             frames, render_clip(seed=10 + v), chunks of 128 pairs): the
+             batched path on host clips and on clips on the card, and the
+             per-video path (ROI-dispatched, two flow workers); every row
+             status 0, rows equal across the three, launches of the first
+             batched run against the full-frame schedule, one video's row
+             against run_full, frames/s and stage seconds;
+10. compat — optical_flow → optical_PCA → optical_PC1 main() on the card
+             over the bench clip as .npy with its skeleton .npz: the flow
+             CLI's launches against its ROI boxes, flow.csv byte-equal to
+             run_flow_stage's, flow_pc1.csv against the CPU, a one-row
+             summary;
+11. PC1 engines — pc1_from_flow with the "scan" and "assoc" band-pass on
+             phase 4's features (times, agreement), and pc1_streaming
+             ("assoc") on 18000 samples against the full signal.
+Phases 9–11 print their seconds.
 
 Every kernel row of the kernels JSON carries its bound: the larger of the
 bytes it must move (each input read once, each output written once) over
@@ -58,8 +75,11 @@ second-to-last line is the kernels JSON, the last line {"ok": true,
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import json
+import os
+import pathlib
 import statistics
 import subprocess
 import time
@@ -77,6 +97,10 @@ TV_SOURCE = "btcs_pnes_optical_flow_tpu_torch/csrc/tvl1.cu"
 PALLAS = "btcs_pnes_optical_flow_tpu/ops/farneback_pallas.py"
 TV_PALLAS = "btcs_pnes_optical_flow_tpu/ops/tvl1_pallas.py"
 TV_PAIRS = 16  # the JAX bench's TV-L1 line: render_clip(17, seed=2)
+# The JAX bench's cohort line (bench.py:401-496): 32 clips of 129 frames,
+# chunks of 128 pairs.
+COHORT_VIDEOS, COHORT_FRAMES, COHORT_CHUNK = 32, 129, 128
+STREAM_SAMPLES = 18000  # 10 minutes at 30 fps
 # (name, K, TPU kernel it replaces, tolerance against the plain version
 # relative to the plain output's largest magnitude, and why).
 KERNELS = (
@@ -256,10 +280,11 @@ def phase_kernels(clip, params, device):
     n_listed = int(fb.tile_mask(lists["ROI box"], CHECK_PAIRS, h, w, fb.TILE).sum())
     _set_bound(rows["poly_exp"], (CHECK_PAIRS + 1) * h * w, *_k1_cost(params.poly_n), None,
                "timed at the main path's shape in phase 3b")
-    _set_bound(rows["update_matrices"], px, *K2_COST, None, NO_LIBRARY["update_matrices"])
+    _set_bound(rows["update_matrices"], px, *_k2_cost(CHECK_PAIRS), None,
+               NO_LIBRARY["update_matrices"])
     _set_bound(rows["update_flow"], px, *_k3_cost(params.winsize, params.gaussian_win), None,
                NO_LIBRARY["update_flow"])
-    _set_bound(rows["update_matrices_tiles"], n_listed, *K2_COST, None,
+    _set_bound(rows["update_matrices_tiles"], n_listed, *_k2_cost(CHECK_PAIRS), None,
                NO_LIBRARY["update_matrices_tiles"])
 
     # K3 box mode over the level-0 box, against its plain version.
@@ -292,7 +317,11 @@ def _check_box_mode(m, params, box, flow_cf):
 
 # Bytes and float32 operations per pixel of each kernel, from its plain
 # version: every input read once and every output written once.
-K2_COST = (4 * (5 + 5 + 2 + 5), 70)  # r0, r1, flow in, M out; warp + assembly
+def _k2_cost(b):
+    """K2 and K4 over b pairs: r0 and r1 are consecutive frames of one
+    (b+1)-frame expansion, so 5 planes of b+1 frames are read once, then
+    flow in and M out; the warp and the assembly."""
+    return 4 * (5 * (b + 1) / b + 2 + 5), 70
 
 
 def _k1_cost(n):
@@ -352,7 +381,7 @@ def _set_bound(row, pixels, bytes_per_px, ops_per_px, library_ms, why_null=None)
     row["library_ms"] = library_ms
     lib = f"{library_ms:.4f} ms" if library_ms is not None else f"null ({why_null})"
     print(f"  {row['name']}: bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
-          f"({pixels} px x {bytes_per_px} B, {ops_per_px} ops), share "
+          f"({pixels} px x {bytes_per_px:g} B, {ops_per_px} ops), share "
           f"{100 * row['share_of_bound']:.1f}%; library call {lib}")
 
 
@@ -369,8 +398,9 @@ def _poly_filters(n, sigma, device):
 
 
 def phase_kernels_main(clip, params, device, rows, box):
-    """K1, K4 (over the ROI box's tiles) and K3 (full frame and box mode) at
-    the main path's shape: one chunk of 257 frames / 256 pairs at level 0."""
+    """K1, K2, K4 (over the ROI box's tiles) and K3 (full frame and box
+    mode) at the main path's shape: one chunk of 257 frames / 256 pairs at
+    level 0."""
     import torch.nn.functional as F
 
     from btcs_pnes_optical_flow_tpu_torch.ops import cvx
@@ -378,8 +408,8 @@ def phase_kernels_main(clip, params, device, rows, box):
     from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
 
     h, w = clip.shape[1:]
-    print(f"== 3b. K1, K4 and K3 at the main path's shape: {CHUNK + 1} frames / {CHUNK} pairs "
-          f"of {h}x{w}, level 0")
+    print(f"== 3b. K1, K2, K4 and K3 at the main path's shape: {CHUNK + 1} frames / {CHUNK} "
+          f"pairs of {h}x{w}, level 0")
     frames = torch.as_tensor(clip[: CHUNK + 1], device=device)
     lv = fb._level_image(frames.float(), 0, params, h, w)[0].contiguous()
     n, sigma = params.poly_n, params.poly_sigma
@@ -406,7 +436,17 @@ def phase_kernels_main(clip, params, device, rows, box):
     # Level-0 M of the chunk at its own flow (the kernel path's; K1 and K2
     # are held bit-equal to their plain versions above).
     flow = fb.farneback_flow_seq(frames, params).movedim(-1, 1).contiguous()
-    m = fc.update_matrices_cf(poly[:-1], poly[1:], flow)
+    r0, r1 = poly[:-1], poly[1:]
+    name, kid, replaces, rtol, why = next(k for k in KERNELS if k[0] == "update_matrices")
+    b8 = rows[name]
+    row = _check_and_time(name, kid, SOURCE, replaces, lambda: fc.update_matrices_cf(r0, r1, flow),
+                          lambda: fb.update_matrices_cf_plain(r0, r1, flow), rtol=rtol,
+                          abs_tol=None, why=why, reps=MAIN_REPS)
+    row.update(b8_ms=b8["ms"], b8_plain_ms=b8["plain_ms"],
+               max_abs_err=max(row["max_abs_err"], b8["max_abs_err"]))
+    rows[name] = row
+    _set_bound(row, CHUNK * h * w, *_k2_cost(CHUNK), None, NO_LIBRARY[name])
+    m = fc.update_matrices_cf(r0, r1, flow)
     _k4_main(rows, params, poly, flow, m, h, w, device)
     del poly
     name, kid, replaces, rtol, why = next(k for k in KERNELS if k[0] == "update_flow")
@@ -456,7 +496,7 @@ def _k4_main(rows, params, poly, flow, m, h, w, device):
     n_listed = int(fb.tile_mask(sel, b, h, w, fb.TILE).sum())
     print(f"K4 at the main path's shape: {sel.numel()} tiles of {fb.TILE} ({n_listed} px; the "
           f"wrapper's time includes its one read-back of sel's range)")
-    _set_bound(row, n_listed, *K2_COST, None, NO_LIBRARY[name])
+    _set_bound(row, n_listed, *_k2_cost(b), None, NO_LIBRARY[name])
     del mk, mp
 
 
@@ -692,6 +732,255 @@ def phase_pipeline(clip, device, smi, rows, full_feats):
     print(f"stage seconds {st} ({timer.report()}); end to end {e2e:.4f} s from decode, "
           f"{n / e2e:.2f} ROI-frames/s on [{smi}]")
     return flow_p
+
+
+def _skeleton(n):
+    """Body axes at θ = 0.3 for n frames at 30 fps (bench.py:107-109)."""
+    from btcs_pnes_optical_flow_tpu_torch.dataio.contracts import Skeleton
+
+    return Skeleton(time_all=np.arange(n) / 30.0, fps=30.0,
+                    ex=np.tile([np.cos(THETA), -np.sin(THETA)], (n, 1)),
+                    ey=np.tile([np.sin(THETA), np.cos(THETA)], (n, 1)))
+
+
+def _rows_equal(a, b, what):
+    """Cohort rows equal within tests/test_parallel.py's rtol 1e-6 (exact
+    equality expected); returns the largest relative difference."""
+    worst = 0.0
+    if [list(r) for r in a] != [list(r) for r in b]:
+        raise AssertionError(f"{what}: the rows' keys differ")
+    for ra, rb in zip(a, b):
+        for k, va in ra.items():
+            vb = rb[k]
+            if isinstance(va, float):
+                if np.isnan(va) and np.isnan(vb):
+                    continue
+                d = abs(va - vb) / max(abs(va), 1e-300)
+                worst = max(worst, d)
+                if not abs(va - vb) <= 1e-6 * abs(va) + 1e-9:
+                    raise AssertionError(f"{what}: {ra['video']} {k} {va} vs {vb}")
+            elif va != vb:
+                raise AssertionError(f"{what}: {ra['video']} {k} {va!r} vs {vb!r}")
+    return worst
+
+
+def phase_cohort(device, smi, rows):
+    """run_cohort at the JAX bench's cohort size (bench.py:401-496): the
+    batched path on host clips and on clips on the card, and the per-video
+    path, each once after a warm-up; launches of the first batched run
+    against the full-frame schedule; one video's row against run_full."""
+    from bench import H, W, render_clip
+    from btcs_pnes_optical_flow_tpu_torch.config import PipelineConfig
+    from btcs_pnes_optical_flow_tpu_torch.dataio.video import ArraySource
+    from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_full
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
+    from btcs_pnes_optical_flow_tpu_torch.parallel.mesh import make_mesh
+    from btcs_pnes_optical_flow_tpu_torch.parallel.runner import CohortItem, run_cohort
+    from btcs_pnes_optical_flow_tpu_torch.utils.timing import StageTimer
+
+    n_v, n_f, chunk = COHORT_VIDEOS, COHORT_FRAMES, COHORT_CHUNK
+    total = n_v * n_f
+    print(f"== 9. cohort: run_cohort on {n_v} clips of {n_f} frames at {H}x{W} "
+          f"(render_clip(seed=10 + v)), the bench ROI, PipelineConfig(), chunks of {chunk} pairs")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        clips = list(pool.map(lambda v: render_clip(n_f, seed=10 + v), range(n_v)))
+    print(f"clips rendered in {time.perf_counter() - t0:.1f} s ({sum(c.nbytes for c in clips) / 1e9:.2f} GB)")
+    skel = _skeleton(n_f)
+    cfg = PipelineConfig()
+    mesh = make_mesh()
+
+    def items(videos):
+        return [CohortItem(f"v{v}", video, skel, [ROI]) for v, video in enumerate(videos)]
+
+    def run(label, videos, **kw):
+        timer = StageTimer(device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_cohort(items(videos), cfg, chunk, device=device, timer=timer, **kw)
+        wall = time.perf_counter() - t0
+        bad = [r for r in out if r["status"] != 0 or r["error"]]
+        if len(out) != n_v or bad:
+            raise AssertionError(f"cohort {label}: {len(out)} rows, failed rows {bad[:2]}")
+        st = {k: round(v, 4) for k, v in timer.times.items()}
+        print(f"cohort {label}: {wall:.4f} s, {total / wall:.2f} frames/s ({total} frames); stage "
+              f"seconds {st} on [{smi}]")
+        return out, wall
+
+    run_cohort(items(clips[:2]), cfg, chunk, mesh=mesh, device=device)  # warm-up
+    fc.reset_launch_counts()
+    batched, _ = run("batched, host clips", clips, mesh=mesh)
+    launches = dict(fc.LAUNCHES)
+    n_lev = cfg.flow.num_levels(H, W) + 1
+    n_it = sum(cfg.flow.iters_at(k) for k in range(n_lev))
+    n_chunks = n_v * -(-(n_f - 1) // chunk)
+    want = {"poly_exp": n_lev * n_chunks, "update_matrices": n_it * n_chunks,
+            "update_flow": n_it * n_chunks, "update_matrices_tiles": 0}
+    print(f"launches of the batched run over {n_chunks} chunks: {launches} (expected the "
+          f"full-frame schedule {want}: {n_lev}/{n_it}/{n_it} per chunk)")
+    if launches != want:
+        raise AssertionError("cohort launches differ from the full-frame schedule")
+    for name in ("poly_exp", "update_matrices", "update_flow"):
+        rows[name]["cohort_launches"] = launches[name]
+
+    t0 = time.perf_counter()
+    on_card = [torch.as_tensor(c, device=device) for c in clips]
+    torch.cuda.synchronize()
+    print(f"clips copied to the card in {time.perf_counter() - t0:.3f} s (not timed below)")
+    resident, _ = run("batched, clips on the card", on_card, mesh=mesh)
+    del on_card
+    per_video, _ = run("per video, ROI-dispatched, 2 flow workers", clips, flow_workers=2)
+    d1 = _rows_equal(batched, resident, "host vs card clips")
+    d2 = _rows_equal(batched, per_video, "batched vs per video")
+    print(f"rows equal across the three runs (largest relative difference {max(d1, d2):.3e}, "
+          f"bar 1e-6); every row status 0, error empty")
+
+    flow, pc1, mets = run_full(ArraySource(clips[0], fps=30.0), skel, [ROI], cfg, chunk,
+                               device=device)
+    single = {"PC1_area_0_10": mets[0].pc1_area, "ADS_slope_0_10": mets[0].ads_slope,
+              "ADS_R2_0_10": mets[0].ads_r2, "Kendall_tau_0_10": mets[0].kendall_tau,
+              "Kendall_p_0_10": mets[0].kendall_p, "Peak_n": mets[0].peak_n,
+              "status": mets[0].status}
+    want_row = dict(batched[0], **{k: (int(v) if k in ("Peak_n", "status") else float(v))
+                                   for k, v in single.items()})
+    _rows_equal([batched[0]], [want_row], "cohort row v0 vs run_full")
+    print(f"row v0 equals run_full on v0 with {chunk}-pair chunks: "
+          + ", ".join(f"{k} {batched[0][k]:.6g}" for k in single))
+
+
+def phase_compat(clip, device, smi):
+    """The three reference-compatible CLIs on the card over the bench clip
+    written as .npy, with its skeleton as .npz."""
+    from bench import H, W
+    from btcs_pnes_optical_flow_tpu_torch.compat import optical_flow, optical_PC1, optical_PCA
+    from btcs_pnes_optical_flow_tpu_torch.config import PipelineConfig
+    from btcs_pnes_optical_flow_tpu_torch.dataio import contracts
+    from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_flow_stage
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
+    from btcs_pnes_optical_flow_tpu_torch.ops.cvx import fill_poly_mask
+
+    n = clip.shape[0]
+    print(f"== 10. compat: optical_flow -> optical_PCA -> optical_PC1 on {n} frames of {H}x{W} "
+          f"(.npy + skeleton .npz), the CLI's default ROI")
+    import tempfile
+
+    build = pathlib.Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = {k: os.path.join(tmp, k) for k in (
+            "clip.npy", "skeleton_pc1.npz", "flow.csv", "ref_flow.csv", "flow_pc1.csv",
+            "cpu_flow_pc1.csv", "summary.csv")}
+        np.save(path["clip.npy"], clip)
+        skel = _skeleton(n)
+        contracts.save_skeleton_npz(path["skeleton_pc1.npz"], skel)
+        roi = optical_flow.DEFAULT_ROI
+        flow_p = fb.roi_dispatch_params(PipelineConfig().flow, H, W, fill_poly_mask(H, W, roi))
+        want = _launch_schedule(flow_p, H, W, -(-(n - 1) // 64))
+        fc.reset_launch_counts()
+        secs = {}
+        t0 = time.perf_counter()
+        optical_flow.main([path["clip.npy"], path["skeleton_pc1.npz"], path["flow.csv"]],
+                          device=device)
+        secs["optical_flow"] = time.perf_counter() - t0
+        launches = dict(fc.LAUNCHES)
+        print(f"launches of optical_flow.main: {launches} (expected from its ROI boxes {want})")
+        if launches != want:
+            raise AssertionError("the flow CLI's launches differ from its ROI-box schedule")
+        run_flow_stage(path["clip.npy"], skel, [roi], PipelineConfig(), chunk_pairs=64,
+                       out_csv=path["ref_flow.csv"], device=device)
+        same = (pathlib.Path(path["flow.csv"]).read_bytes()
+                == pathlib.Path(path["ref_flow.csv"]).read_bytes())
+        print(f"flow.csv byte-equal to run_flow_stage(chunk_pairs=64)'s: {same}")
+        if not same:
+            raise AssertionError("flow.csv differs from run_flow_stage's")
+        t0 = time.perf_counter()
+        optical_PCA.main([path["flow.csv"], path["flow_pc1.csv"]], device=device)
+        secs["optical_PCA"] = time.perf_counter() - t0
+        optical_PCA.main([path["flow.csv"], path["cpu_flow_pc1.csv"]], device="cpu")
+        a = contracts.read_pc1_csv(path["flow_pc1.csv"])["pc1_dyn"]
+        b = contracts.read_pc1_csv(path["cpu_flow_pc1.csv"])["pc1_dyn"]
+        fin = np.isfinite(b)
+        corr = float(np.corrcoef(a[fin], b[fin])[0, 1])
+        print(f"flow_pc1.csv card vs CPU: NaN pattern equal {np.array_equal(np.isnan(a), ~fin)}, "
+              f"corr {corr:.9f} (bar 0.9999), {int(fin.sum())} finite of {len(b)}")
+        if not (np.array_equal(np.isnan(a), ~fin) and corr >= 0.9999):
+            raise AssertionError("flow_pc1.csv on the card disagrees with the CPU")
+        t0 = time.perf_counter()
+        optical_PC1.main([path["flow_pc1.csv"], path["summary.csv"]], device=device)
+        secs["optical_PC1"] = time.perf_counter() - t0
+        with open(path["summary.csv"], newline="") as f:
+            summary = list(csv.reader(f))
+    print(f"summary: {summary}")
+    if summary[0] != contracts.SUMMARY_COLUMNS or len(summary) != 2:
+        raise AssertionError("the summary is not one row of SUMMARY_COLUMNS")
+    print(f"CLI seconds {({k: round(v, 4) for k, v in secs.items()})} on [{smi}]")
+
+
+def _long_signal(n, rng):
+    """tests/test_streaming.py's _long_signal: a 3 Hz chirp on a slowly
+    turning axis with noise, NaN at 0 and over [900, 950)."""
+    t = np.arange(n) / 30.0
+    phase = 2 * np.pi * (3.0 * t - 0.01 * t * t)
+    amp = 2.5 * (1 + 0.3 * np.sin(2 * np.pi * 0.05 * t))
+    theta = 0.4 + 0.2 * np.sin(2 * np.pi * 0.02 * t)
+    vx = amp * np.sin(phase) * np.cos(theta) + 0.1 * rng.normal(size=n)
+    vy = amp * np.sin(phase) * np.sin(theta) + 0.1 * rng.normal(size=n)
+    vx[0] = vy[0] = np.nan
+    vx[900:950] = np.nan
+    vy[900:950] = np.nan
+    return vx, vy
+
+
+def phase_pc1_engines(device, smi, full_feats):
+    """pc1_from_flow with the sequential and the associative band-pass on
+    phase 4's 513-sample input, then pc1_streaming (assoc) on 10 minutes at
+    30 fps against the full signal."""
+    from btcs_pnes_optical_flow_tpu_torch.models.pc1 import pc1_from_flow
+    from btcs_pnes_optical_flow_tpu_torch.models.streaming import pc1_streaming
+
+    print("== 11. PC1 engines on phase 4's features, then streaming")
+    nan = torch.tensor([float("nan")])
+    vx = torch.cat([nan, full_feats[0]]).to(device)
+    vy = torch.cat([nan, full_feats[1]]).to(device)
+    out, secs = {}, {}
+    for engine in ("scan", "assoc"):
+        pc1_from_flow(vx, vy, engine=engine)  # warm-up
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[engine] = pc1_from_flow(vx, vy, engine=engine).cpu().numpy()
+            times.append(time.perf_counter() - t0)
+        secs[engine] = statistics.median(times)
+    fin = np.isfinite(out["scan"])
+    corr = float(np.corrcoef(out["scan"][fin], out["assoc"][fin])[0, 1])
+    print(f"pc1_from_flow on {vx.numel()} samples: scan {secs['scan']:.4f} s, assoc "
+          f"{secs['assoc']:.4f} s (median of 3, with the host copy); NaN pattern equal "
+          f"{np.array_equal(np.isnan(out['assoc']), ~fin)}, corr {corr:.9f} (bar 0.999), max |d| "
+          f"{float(np.abs(out['scan'][fin] - out['assoc'][fin]).max()):.3e} on [{smi}]")
+    if not (np.array_equal(np.isnan(out["assoc"]), ~fin) and corr >= 0.999):
+        raise AssertionError("the assoc engine disagrees with the scan engine")
+
+    n = STREAM_SAMPLES
+    sx, sy = _long_signal(n, np.random.default_rng(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = pc1_from_flow(torch.as_tensor(sx, dtype=torch.float32, device=device),
+                         torch.as_tensor(sy, dtype=torch.float32, device=device),
+                         engine="assoc").cpu().numpy()
+    full_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chunked = pc1_streaming(sx, sy, engine="assoc", device=device)
+    stream_s = time.perf_counter() - t0
+    fin = np.isfinite(full)
+    same_nan = np.array_equal(np.isnan(chunked), ~fin)
+    corr = float(np.corrcoef(chunked[fin], full[fin])[0, 1])
+    print(f"pc1_streaming (assoc, chunks of 4096, margin 240) on {n} samples: {stream_s:.4f} s; "
+          f"full-signal pc1_from_flow (assoc) {full_s:.4f} s; NaN pattern equal {same_nan}, corr "
+          f"{corr:.9f} (bar > 0.9999), max |d| {float(np.abs(chunked[fin] - full[fin]).max()):.3e}")
+    if not (same_nan and corr > 0.9999):
+        raise AssertionError("streaming PC1 disagrees with the full signal")
 
 
 def phase_profile(title, run, host_top=0):
@@ -956,6 +1245,13 @@ def main():
     flow_p = phase_pipeline(clip, device, smi, rows, full_feats)
     phase_profile("== 8b. device time by kernel, one ROI-dispatched chunk",
                   lambda: roi_body_flow_seq(chunk, exd, eyd, masks, flow_p))
+    del chunk, exd, eyd, masks
+    for number, phase, args in ((9, phase_cohort, (device, smi, rows)),
+                                (10, phase_compat, (clip, device, smi)),
+                                (11, phase_pc1_engines, (device, smi, full_feats))):
+        t0 = time.perf_counter()
+        phase(*args)
+        print(f"phase {number}: {time.perf_counter() - t0:.1f} s")
     names = [name for name, *_ in KERNELS] + [name for name, *_ in TV_KERNELS]
     print(json.dumps({"kernels": [rows[name] for name in names]}))
     print(json.dumps({"ok": True, "device": {

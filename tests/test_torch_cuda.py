@@ -1,6 +1,8 @@
 """The CUDA kernels K1–K4 (Farnebäck) and K5–K6 (TV-L1) against their
-plain PyTorch versions, and the pipeline's flow stage against the CPU and
-its CSV files, on the card.
+plain PyTorch versions, the pipeline's flow stage against the CPU and its
+CSV files, the associative band-pass, PC1 and streaming PC1 against the
+CPU, the cohort runner's paths against each other and the CLIs against
+the CPU, on the card.
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
 one.  The file imports neither JAX nor the repository's conftest, so it
@@ -303,6 +305,154 @@ def test_run_full_writes_its_csvs_on_the_card(card, tmp_path):
     assert int(sm[1][7]) == int(mets[0].peak_n)
     for i, f in enumerate(("pc1_area", "ads_slope", "ads_r2", "kendall_tau", "kendall_p")):
         assert np.array_equal(num(sm[1][2 + i]), float(getattr(mets[0], f)), equal_nan=True)
+
+
+def _nan_signals(shape, seed):
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    x[..., 0] = np.nan
+    x[..., 300:340] = np.nan
+    return x
+
+
+def test_assoc_band_pass_card_matches_cpu(card):
+    """The associative engine's doubling scan on the card against the CPU:
+    the same float32 operations in the same order, one kernel each."""
+    from btcs_pnes_optical_flow_tpu_torch.ops import filters
+
+    sos, zi, padreq = filters.make_bandpass(0.5, 5.0, 30.0, 4)
+    x = _nan_signals((4, 1024), 0)
+    out = [filters.bandpass_nanrobust(torch.as_tensor(x, device=d), sos,
+                                      torch.as_tensor(zi, device=d), padreq).cpu()
+           for d in ("cpu", card)]
+    assert torch.equal(torch.isnan(out[0]), torch.isnan(out[1]))
+    fin = torch.isfinite(out[0])
+    assert float((out[0][fin] - out[1][fin]).abs().max()) <= 1e-6 * float(out[0][fin].abs().max())
+    y, zf = zip(*(filters.sosfilt(sos, torch.as_tensor(x[:, 400:], device=d),
+                                  torch.as_tensor(zi, device=d)) for d in ("cpu", card)))
+    torch.testing.assert_close(y[1].cpu(), y[0], rtol=0, atol=1e-6 * float(y[0].abs().max()))
+    torch.testing.assert_close(zf[1].cpu(), zf[0], rtol=0, atol=1e-5 * float(zf[0].abs().max()))
+
+
+@pytest.mark.parametrize("engine", ["scan", "assoc"])
+def test_pc1_and_streaming_card_match_cpu(card, engine):
+    from btcs_pnes_optical_flow_tpu_torch.models.pc1 import pc1_from_flow
+    from btcs_pnes_optical_flow_tpu_torch.models.streaming import pc1_streaming
+
+    t = np.arange(3000) / 30.0
+    vx = np.sin(2 * np.pi * 3.0 * t) * np.cos(0.4) + 0.1 * np.random.default_rng(1).normal(size=t.size)
+    vy = np.sin(2 * np.pi * 3.0 * t) * np.sin(0.4) + 0.1 * np.random.default_rng(2).normal(size=t.size)
+    vx[0] = vy[0] = np.nan
+    vx[900:950] = vy[900:950] = np.nan
+    n = 513 if engine == "scan" else 3000  # the sequential scan is one step per sample
+    full = [pc1_from_flow(torch.as_tensor(vx[:n], dtype=torch.float32, device=d),
+                          torch.as_tensor(vy[:n], dtype=torch.float32, device=d),
+                          engine=engine).cpu().numpy() for d in ("cpu", card)]
+    fin = np.isfinite(full[0])
+    assert np.array_equal(np.isnan(full[1]), ~fin)
+    assert np.corrcoef(full[0][fin], full[1][fin])[0, 1] >= 0.9999
+    if engine == "assoc":
+        chunked = [pc1_streaming(vx, vy, chunk_n=1024, engine=engine, device=d)
+                   for d in ("cpu", card)]
+        assert np.array_equal(np.isnan(chunked[0]), np.isnan(chunked[1]))
+        fin = np.isfinite(chunked[0])
+        assert np.corrcoef(chunked[0][fin], chunked[1][fin])[0, 1] > 0.9999
+        assert np.corrcoef(chunked[1][fin], full[1][fin])[0, 1] > 0.9999
+
+
+def _cohort_items(n_videos, n_frames, video_of=lambda c: c):
+    """Clips of 64×96 with a blob oscillating at 2.5 Hz, one ROI."""
+    from btcs_pnes_optical_flow_tpu_torch.dataio.contracts import Skeleton
+    from btcs_pnes_optical_flow_tpu_torch.parallel.runner import CohortItem
+
+    h, w = 64, 96
+    yy, xx = np.mgrid[0:h, 0:w]
+    t = np.arange(n_frames) / 30.0
+    roi = np.array([[10.0, 8.0], [86.0, 9.0], [84.0, 56.0], [9.0, 54.0]])
+    skel = Skeleton(time_all=t, fps=30.0, ex=np.tile([np.cos(0.3), -np.sin(0.3)], (n_frames, 1)),
+                    ey=np.tile([np.sin(0.3), np.cos(0.3)], (n_frames, 1)))
+    items = []
+    for v in range(n_videos):
+        rng = np.random.default_rng(40 + v)
+        tex = 20 * np.sin(xx / 4.7) * np.cos(yy / 5.3) + rng.normal(0, 3, (h, w))
+        cx = w / 2 + 10 * np.sin(2 * np.pi * 2.5 * t + v)
+        clip = np.stack([np.clip(70 + tex + 150 * np.exp(
+            -(((xx - cx[i]) / 8.0) ** 2 + ((yy - h / 2) / 8.0) ** 2)), 0, 255)
+            for i in range(n_frames)]).astype(np.uint8)
+        items.append(CohortItem(f"v{v}", video_of(clip), skel, [roi]))
+    return items
+
+
+def test_run_cohort_paths_agree_on_the_card(card, tmp_path):
+    """run_cohort's batched path (host clips and clips on the card) and its
+    per-video path give the same rows on the card; the batched path runs
+    the full-frame schedule; make_mesh gives the card."""
+    from btcs_pnes_optical_flow_tpu_torch.config import MetricParams, PipelineConfig
+    from btcs_pnes_optical_flow_tpu_torch.parallel.mesh import make_mesh
+    from btcs_pnes_optical_flow_tpu_torch.parallel.runner import run_cohort
+
+    mesh = make_mesh()
+    assert mesh == (torch.device("cuda", 0),)
+    with pytest.raises(NotImplementedError):
+        make_mesh(2)
+    cfg = PipelineConfig(metrics=MetricParams(window_sec=2.0))
+    fc.reset_launch_counts()
+    batched = run_cohort(_cohort_items(3, 81), cfg, 32, mesh=mesh, device=card)
+    n_lev = cfg.flow.num_levels(64, 96) + 1
+    n_it = sum(cfg.flow.iters_at(k) for k in range(n_lev))
+    chunks = 3 * 3  # 3 videos of 80 pairs in chunks of 32
+    assert fc.LAUNCHES == {"poly_exp": n_lev * chunks, "update_matrices": n_it * chunks,
+                           "update_flow": n_it * chunks, "update_matrices_tiles": 0}
+    resident = run_cohort(_cohort_items(3, 81, lambda c: torch.as_tensor(c, device=card)), cfg,
+                          32, mesh=mesh, device=card)
+    per_video = run_cohort(_cohort_items(3, 81), cfg, 32, flow_workers=2, device=card,
+                           out_csv=str(tmp_path / "cohort.csv"))
+    assert all(r["status"] == 0 and r["error"] == "" for r in batched)
+    for other in (resident, per_video):
+        for a, b in zip(batched, other):
+            assert list(a) == list(b)
+            for k, va in a.items():
+                if isinstance(va, float):
+                    np.testing.assert_allclose(b[k], va, rtol=1e-6, atol=1e-9, equal_nan=True)
+                else:
+                    assert b[k] == va
+    assert (tmp_path / "cohort.csv").read_text().count("\n") == 4
+
+
+def test_compat_clis_on_the_card(card, tmp_path):
+    """The three CLIs' main() on the card against the CPU over the same
+    files."""
+    import csv
+
+    from btcs_pnes_optical_flow_tpu_torch.compat import optical_flow, optical_PC1, optical_PCA
+    from btcs_pnes_optical_flow_tpu_torch.dataio.contracts import save_skeleton_npz
+
+    item = _cohort_items(1, 81)[0]
+    video, npz = str(tmp_path / "clip.npy"), str(tmp_path / "skel.npz")
+    np.save(video, item.video)
+    save_skeleton_npz(npz, item.skeleton)
+    out = {}
+    for d in ("cpu", card):
+        p = [str(tmp_path / f"{d}_{k}.csv") for k in ("flow", "pc1", "summary")]
+        optical_flow.main([video, npz, p[0], str(item.roi_polygons[0].tolist())], device=d)
+        optical_PCA.main(p[:2], device=d)
+        optical_PC1.main(p[1:], device=d)
+        out[d] = []
+        for path in p:
+            with open(path, newline="") as f:
+                out[d].append(list(csv.reader(f)))
+    cpu, gpu = out["cpu"], out[card]
+    for a, b in zip(cpu, gpu):
+        assert a[0] == b[0] and len(a) == len(b)
+
+    def col(rows, name):
+        i = rows[0].index(name)
+        return np.array([float(r[i]) if r[i] else np.nan for r in rows[1:]])
+
+    np.testing.assert_allclose(col(gpu[0], "vx_body"), col(cpu[0], "vx_body"), atol=1e-3)
+    a, c = col(gpu[1], "pc1_dyn"), col(cpu[1], "pc1_dyn")
+    fin = np.isfinite(c)
+    assert np.array_equal(np.isnan(a), ~fin) and np.corrcoef(a[fin], c[fin])[0, 1] >= 0.999
+    assert len(gpu[2]) == 2 and gpu[2][1][0] == "pc1_dyn"
 
 
 # TV-L1: odd sizes, a width past one tile row, B > 1; for K6 also a shape

@@ -37,6 +37,8 @@ def test_no_module_of_the_port_imports_the_jax_package():
     files = sorted((REPO / "btcs_pnes_optical_flow_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    scanned = {f.relative_to(REPO / "btcs_pnes_optical_flow_tpu_torch").parts[0] for f in files[:-1]}
+    assert {"compat", "parallel", "dataio", "models", "ops"} <= scanned
     offenders = {str(f.relative_to(REPO)): sorted(n & {JAX_PACKAGE, "jax", "jaxlib"})
                  for f in files for n in [_imported_top_names(f)]
                  if n & {JAX_PACKAGE, "jax", "jaxlib"}}

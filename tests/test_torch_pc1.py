@@ -1,5 +1,7 @@
 """The PyTorch port's band-pass and sliding-window PCA against the JAX
-package (sequential-scan engine) and SciPy, on the CPU."""
+package and SciPy, on the CPU: the filters' sequential-scan engine here
+(the associative engine in tests/test_torch_filters.py), and PC1 through
+either engine."""
 
 import numpy as np
 import pytest
@@ -46,14 +48,9 @@ def test_sosfiltfilt_matches_scipy(n, rng):
     x = rng.normal(size=n).astype(np.float32)
     ref = scipy.signal.sosfiltfilt(np.ascontiguousarray(SOS), x.astype(np.float64),
                                    padlen=PADREQ)
-    mine = tfilters.sosfiltfilt(SOS, _t(x), _t(ZI), PADREQ).numpy()
+    mine = tfilters.sosfiltfilt(SOS, _t(x), _t(ZI), PADREQ, engine="scan").numpy()
     # float32 recurrence against SciPy's float64 one.
     assert np.abs(mine - ref).max() <= 1e-4 * np.abs(ref).max()
-
-
-def test_sosfilt_assoc_engine_not_ported():
-    with pytest.raises(NotImplementedError):
-        tfilters.sosfilt(SOS, torch.zeros(10), _t(ZI), engine="assoc")
 
 
 @pytest.mark.parametrize("max_runs", [64, 2])
@@ -71,13 +68,14 @@ def test_bandpass_nanrobust_matches_jax(rng):
     x = _signal(rng, 400, [(0, 1), (50, 60), (100, 101), (110, 112), (300, 305)])
     ref = np.asarray(jfilters.bandpass_nanrobust(
         jnp.asarray(x), SOS, jnp.asarray(ZI), PADREQ, 64, engine="scan"))
-    mine = tfilters.bandpass_nanrobust(_t(x), SOS, _t(ZI), PADREQ, 64).numpy()
+    mine = tfilters.bandpass_nanrobust(_t(x), SOS, _t(ZI), PADREQ, 64, engine="scan").numpy()
     assert np.isnan(mine[101:110]).all()
     # The same float32 recurrence; XLA may fuse a multiply-add per step.
     _close_with_nans(mine, ref, 1e-4)
     # Both signals of a batch are filtered independently.
     y = _signal(rng, 400, [(200, 210)])
-    both = tfilters.bandpass_nanrobust(torch.stack([_t(x), _t(y)]), SOS, _t(ZI), PADREQ).numpy()
+    both = tfilters.bandpass_nanrobust(torch.stack([_t(x), _t(y)]), SOS, _t(ZI), PADREQ,
+                                       engine="scan").numpy()
     assert np.array_equal(both[0], mine, equal_nan=True)
 
 
@@ -132,3 +130,13 @@ def test_pc1_from_flow_matches_jax(rng):
     mine = tpc1.pc1_from_flow(_t(vx), _t(vy), from_fields(p)).numpy()
     assert mine.shape == (513,)
     _pc1_close(mine, ref)
+
+
+def test_pc1_from_flow_assoc_engine_matches_jax(rng):
+    vx, vy = _axis_signals(rng, 513, [(0, 1), (250, 262)])
+    p = PCAParams()
+    ref = np.asarray(jpc1.pc1_from_flow(jnp.asarray(vx), jnp.asarray(vy), p, "assoc"))
+    mine = tpc1.pc1_from_flow(_t(vx), _t(vy), from_fields(p), engine="assoc").numpy()
+    _pc1_close(mine, ref)
+    with pytest.raises(ValueError):
+        tfilters.sosfilt(SOS, torch.zeros(10), _t(ZI), engine="fft")

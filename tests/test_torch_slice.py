@@ -95,8 +95,9 @@ def test_port_never_imports_jax(tmp_path):
     """The port runs where the JAX package, jax, pandas and cv2 are missing:
     a subprocess that cannot import them runs the flow + PC1 slice, TV-L1,
     the pipeline's run_full with its three CSVs (read back with the csv
-    module), and the flow stage with a checkpoint directory, then resumed
-    from it."""
+    module), the flow stage with a checkpoint directory, then resumed from
+    it, the three reference-compatible CLIs, and run_cohort on its batched
+    and per-video paths with its CSV."""
     code = (
         "import csv, math, os, sys\n"
         "BLOCKED = ('btcs_pnes_optical_flow_tpu', 'jax', 'jaxlib', 'pandas', 'cv2')\n"
@@ -167,6 +168,31 @@ def test_port_never_imports_jax(tmp_path):
         "sm = rows(paths[2])\n"
         "assert len(sm) == 2 and sm[1][0] == 'pc1_dyn' and int(sm[1][7]) == int(mets[0].peak_n)\n"
         "assert num(sm[1][2]) == float(mets[0].pc1_area)\n"
+        "from btcs_pnes_optical_flow_tpu_torch.compat import optical_PC1, optical_PCA, optical_flow\n"
+        "from btcs_pnes_optical_flow_tpu_torch.dataio.contracts import save_skeleton_npz\n"
+        "video, npz = os.path.join(out, 'clip.npy'), os.path.join(out, 'skel.npz')\n"
+        "np.save(video, clip)\n"
+        "save_skeleton_npz(npz, skel)\n"
+        "cli = [os.path.join(out, 'cli_' + n + '.csv') for n in ('flow', 'pc1', 'summary')]\n"
+        "import contextlib, io\n"
+        "with contextlib.redirect_stdout(io.StringIO()) as said:\n"
+        "    optical_flow.main([video, npz, cli[0], str(roi.tolist())], device='cpu')\n"
+        "assert said.getvalue() == 'Saved: ' + cli[0] + '\\n'\n"
+        "assert open(cli[0], 'rb').read() == open(paths[0], 'rb').read()\n"
+        "optical_PCA.main(cli[:2], device='cpu')\n"
+        "assert rows(cli[1])[0] == ['t_sec', 'pc1_dyn'] and len(rows(cli[1])) == 81\n"
+        "optical_PC1.main(cli[1:], device='cpu')\n"
+        "assert len(rows(cli[2])) == 2 and rows(cli[2])[1][0] == 'pc1_dyn'\n"
+        "from btcs_pnes_optical_flow_tpu_torch.parallel.runner import CohortItem, run_cohort\n"
+        "coh = os.path.join(out, 'cohort.csv')\n"
+        "batched = run_cohort([CohortItem(n, clip, skel, [roi]) for n in 'ab'], chunk_pairs=32,\n"
+        "                     out_csv=coh, mesh=(torch.device('cpu'),), device='cpu')\n"
+        "per_video = run_cohort([CohortItem('a', clip, skel, [roi]),\n"
+        "                        CohortItem('b', ArraySource(clip, 30.0), skel, [roi])],\n"
+        "                       chunk_pairs=32, device='cpu')\n"
+        "assert len(batched) == 2 and [r['status'] for r in batched] == [0, 0]\n"
+        "assert repr(batched) == repr(per_video)\n"
+        "assert rows(coh)[0][:2] == ['video', 'roi'] and len(rows(coh)) == 3\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
