@@ -2,7 +2,8 @@
 
 The production pipeline of ``btcs_pnes_optical_flow_tpu`` (decode →
 ROI-dispatched Farnebäck flow → PC1 → metrics), its TV-L1 flow engine,
-cohort runner, streaming PC1 and reference-compatible CLIs, written in
+cohort runner, multi-device layer, streaming PC1 and
+reference-compatible CLIs, written in
 PyTorch with hand-written CUDA kernels for Hopper (``csrc/``).
 The JAX package stays the reference; this package imports nothing of it
 (nor jax, pandas or cv2 on its main path).
@@ -24,9 +25,11 @@ Layout
 - ``models``  pipeline stages: ROI flow features (``flow``), the PC1 head
               (``pc1``), the metric head (``metrics``), the end-to-end
               orchestrator (``pipeline``) and chunked PC1 (``streaming``).
-- ``parallel`` cohorts on the card: the device (``mesh``), the batched
-              cohort flow stage (``cohort``) and ``run_cohort``
-              (``runner``).
+- ``parallel`` one card or a mesh of them: devices over named axes
+              (``mesh``), the cohort step and flow stage split over the
+              mesh (``cohort``), ``run_cohort`` (``runner``), halo
+              exchange (``halo``) and height-sharded Farnebäck
+              (``spatial``).
 - ``compat``  the reference's three scripts (optical_flow, optical_PCA,
               optical_PC1) with their call signatures and files.
 - ``utils``   the device an entry point runs on (``device``), logger,

@@ -162,10 +162,15 @@ def from_fields(obj):
     return cls(**vals)
 
 
+# The warp's precisions: float32, or the TPU kernel's bf16 horizontal lerp.
+WARP_PRECISIONS = ("fp32", "bf16")
+
+
 def check_supported(params: FarnebackParams) -> FarnebackParams:
     """Reject the knobs this package does not implement; returns params.
 
-    - ``warp_precision="bf16"`` raises: the bf16 warp is not ported yet.
+    - ``warp_precision`` is "fp32" or "bf16" (the TPU kernel's bf16
+      horizontal lerp, ``ops/farneback.py _lerp_x``); anything else raises.
     - The TPU banded-warp knobs (``warp_d_max_*``, ``warp_base_max``,
       ``warp_s_cap``, ``warp_dual_*``, ``warp_dma_slots``,
       ``warp_coarse_reach``, ``warp_coarse_tw``, ``warp_layout``) are
@@ -181,8 +186,9 @@ def check_supported(params: FarnebackParams) -> FarnebackParams:
       ``farneback_flow_seq`` start the pyramid from their ``flow0``
       argument when it is given, as cv2's OPTFLOW_USE_INITIAL_FLOW does.
     """
-    if params.warp_precision != "fp32":
+    if params.warp_precision not in WARP_PRECISIONS:
         raise ValueError(
-            f"warp_precision={params.warp_precision!r} is not supported; use 'fp32'"
+            f"warp_precision={params.warp_precision!r} is not supported; use one of "
+            f"{WARP_PRECISIONS}"
         )
     return params

@@ -25,6 +25,13 @@
 //    read only when the guard holds (outside it cv2 uses none of them), and
 //    the TPU kernel's banded window, clip counters and follow-up passes have
 //    no counterpart: a direct sample has no reach limit.
+//    Instances: the precision of the horizontal lerp (fp32, or the TPU
+//    kernel's bf16 candidate MAC of warp_precision="bf16", each bf16 step
+//    rounded with __float2bfloat16_rn; the bytes moved are the same, so bf16
+//    buys nothing on this card and exists to compute what the TPU computes),
+//    and a row-offset instance for a height shard (parallel/spatial.py, which
+//    replaces spatial.py _update_matrices_sharded: r1 carries a halo of
+//    rows, targets are global rows, the rim damping uses global rows).
 //
 // K3 update_flow_kernel — replaces farneback_pallas.py update_flow_fused_cf
 //    (body _flow_kernel_factory).  The winsize window average of the 5 M
@@ -93,6 +100,7 @@
 // 2.65 G elements.  Every launcher returns cudaGetLastError() after launching
 // on the caller's stream; it neither synchronises nor allocates.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -417,22 +425,53 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// v rounded to bfloat16 (nearest, ties to even) and widened back to float.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// One row's horizontal lerp (1 - ax)·v0 + ax·v1.  kBf16 is the TPU kernel's
+// bf16 candidate MAC: taps and weights rounded to bfloat16 (1 - ax taken in
+// float first), each product and the sum rounded, the (1 - ax)·v0 term
+// first; ops/farneback.py _lerp_x is its plain version.
+template <bool kBf16>
+__device__ __forceinline__ float lerp_x(float v0, float v1, float ax) {
+  if constexpr (kBf16) {
+    const float omx = round_bf16(1.f - ax);
+    const float axb = round_bf16(ax);
+    return round_bf16(round_bf16(round_bf16(v0) * omx) + round_bf16(round_bf16(v1) * axb));
+  } else {
+    return v0 * (1.f - ax) + v1 * ax;
+  }
+}
+
 // One pixel (b, y, x) of M; rim = [sy (h), sx (w)], the rim damping at
-// (y, x) is sy[y] * sx[x].  K2 and K4 both call it, so they cannot drift apart.
+// (y, x) is sy[y] * sx[x].  K2, K4 and K2's row-offset instance all call it,
+// so they cannot drift apart.
+//
+// Row-offset form (a height shard, ops/farneback.py
+// update_matrices_rows_cf_plain): r0, flow and m hold rows [row_off,
+// row_off + h) of an image of h_glob rows, r1 the same rows with `halo` rows
+// above and below (h + 2·halo rows); warp targets are global rows, and one
+// whose floor row lies outside r1 counts as outside the image.  The whole
+// image is row_off = halo = 0, h_glob = h.
+template <bool kBf16>
 __device__ __forceinline__ void matrices_pixel(const float* __restrict__ r0,
                                                const float* __restrict__ r1,
                                                const float* __restrict__ flow,
                                                const float* __restrict__ rim,
                                                float* __restrict__ m, long long b, int y, int x,
-                                               int h, int w) {
+                                               int h, int w, int row_off, int halo, int h_glob) {
   const long long plane = (long long)h * w;
+  const int h_ext = h + 2 * halo;
+  const long long plane_ext = (long long)h_ext * w;
   const long long pix = (long long)y * w + x;
   const float scale = rim[y] * rim[h + x];
   const float dx = flow[b * 2 * plane + pix];
   const float dy = flow[b * 2 * plane + plane + pix];
   const float* a = r0 + b * 5 * plane + pix;
   const float fx = (float)x + dx;
-  const float fy = (float)y + dy;
+  const float fy = (float)(row_off + y) + dy;
   const float fxf = floorf(fx);
   const float fyf = floorf(fy);
   const float ax = fx - fxf;
@@ -440,16 +479,18 @@ __device__ __forceinline__ void matrices_pixel(const float* __restrict__ r0,
   // Clamp before the cast: (int) truncates and overflows; [-2, size]
   // keeps the guard's verdict.  fmaxf maps a NaN to -2 (outside).
   const int xi = (int)fminf(fmaxf(fxf, -2.f), (float)w);
-  const int yi = (int)fminf(fmaxf(fyf, -2.f), (float)h);
-  const bool inside = xi >= 0 && xi < w - 1 && yi >= 0 && yi < h - 1;
+  const int yi = (int)fminf(fmaxf(fyf, -2.f), (float)h_glob);
+  const int ye = yi - row_off + halo;  // the floor row inside r1
+  const bool inside = xi >= 0 && xi < w - 1 && yi >= 0 && yi < h_glob - 1 && ye >= 0 &&
+                      ye < h_ext - 1;
   float s[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
   if (inside) {
-    const float* c = r1 + b * 5 * plane + (long long)yi * w + xi;
+    const float* c = r1 + b * 5 * plane_ext + (long long)ye * w + xi;
 #pragma unroll
     for (int ch = 0; ch < 5; ++ch) {
-      const float* p = c + ch * plane;
-      const float top = p[0] * (1.f - ax) + p[1] * ax;
-      const float bot = p[w] * (1.f - ax) + p[w + 1] * ax;
+      const float* p = c + ch * plane_ext;
+      const float top = lerp_x<kBf16>(p[0], p[1], ax);
+      const float bot = lerp_x<kBf16>(p[w], p[w + 1], ax);
       s[ch] = top * (1.f - ay) + bot * ay;
     }
   }
@@ -474,15 +515,23 @@ __device__ __forceinline__ void matrices_pixel(const float* __restrict__ r0,
   o[4 * plane] = r6 * r2 + r5 * r3;
 }
 
+// K2 (kRows false: the whole image, the offset arguments unused) and its
+// row-offset instance (kRows true: a height shard, see matrices_pixel).
+template <bool kBf16, bool kRows>
 __global__ void update_matrices_kernel(const float* __restrict__ r0, const float* __restrict__ r1,
                                        const float* __restrict__ flow,
                                        const float* __restrict__ rim, float* __restrict__ m,
-                                       long long batch, int h, int w) {
+                                       long long batch, int h, int w, int row_off, int halo,
+                                       int h_glob) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= w || y >= h) return;
-  for (long long b = blockIdx.z; b < batch; b += gridDim.z)
-    matrices_pixel(r0, r1, flow, rim, m, b, y, x, h, w);
+  for (long long b = blockIdx.z; b < batch; b += gridDim.z) {
+    if constexpr (kRows)
+      matrices_pixel<kBf16>(r0, r1, flow, rim, m, b, y, x, h, w, row_off, halo, h_glob);
+    else
+      matrices_pixel<kBf16>(r0, r1, flow, rim, m, b, y, x, h, w, 0, 0, h);
+  }
 }
 
 // sel: the listed tiles' flat ids (b * n_i + i) * n_j + j on the
@@ -490,6 +539,7 @@ __global__ void update_matrices_kernel(const float* __restrict__ r0, const float
 // blockDim.y), n_j = ceil(w / blockDim.x).  Block s computes tile sel[s],
 // one thread per pixel (K2's block); pixels past the level's edge are
 // skipped and M outside the listed tiles is left as it was.
+template <bool kBf16>
 __global__ void update_matrices_tiles_kernel(const float* __restrict__ r0,
                                              const float* __restrict__ r1,
                                              const float* __restrict__ flow,
@@ -504,7 +554,7 @@ __global__ void update_matrices_tiles_kernel(const float* __restrict__ r0,
   const int i = rem / n_j;
   const int y = i * blockDim.y + threadIdx.y;
   const int x = (rem - i * n_j) * blockDim.x + threadIdx.x;
-  if (y < h && x < w) matrices_pixel(r0, r1, flow, rim, m, b, y, x, h, w);
+  if (y < h && x < w) matrices_pixel<kBf16>(r0, r1, flow, rim, m, b, y, x, h, w, 0, 0, h);
 }
 
 // K3's taps: the window's separable weights (winsize ≤ 31) and, for the
@@ -810,13 +860,19 @@ int fb_poly_exp(const float* img, const float* consts_host, const float* consts_
   }
 }
 
+// K2 (row_off = halo = 0, h_glob = h, rows = 0) or its row-offset instance
+// (rows = 1: r1 has h + 2·halo rows, rim = [sy of the shard's global rows,
+// sx]); bf16 selects the bf16 horizontal lerp.
 int fb_update_matrices(const float* r0, const float* r1, const float* flow, const float* rim,
-                       float* m, long long batch, int h, int w, void* stream) {
+                       float* m, long long batch, int h, int w, int row_off, int halo, int h_glob,
+                       int rows, int bf16, void* stream) {
   const dim3 block(kThreadsX, kThreadsY);
   const dim3 grid((w + kThreadsX - 1) / kThreadsX, (h + kThreadsY - 1) / kThreadsY,
                   grid_z(batch));
-  update_matrices_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(r0, r1, flow, rim, m, batch,
-                                                                   h, w);
+  const cudaStream_t s = (cudaStream_t)stream;
+  auto kernel = rows ? (bf16 ? update_matrices_kernel<true, true> : update_matrices_kernel<false, true>)
+                     : (bf16 ? update_matrices_kernel<true, false> : update_matrices_kernel<false, false>);
+  kernel<<<grid, block, 0, s>>>(r0, r1, flow, rim, m, batch, h, w, row_off, halo, h_glob);
   return (int)cudaGetLastError();
 }
 
@@ -839,10 +895,10 @@ int fb_update_flow(const float* m, const float* weights_host, const float* weigh
 
 int fb_update_matrices_tiles(const float* r0, const float* r1, const float* flow,
                              const float* rim, const int* sel, float* m, long long n_tiles, int h,
-                             int w, int tile_h, int tile_w, void* stream) {
+                             int w, int tile_h, int tile_w, int bf16, void* stream) {
   const dim3 block(tile_w, tile_h);  // one thread per pixel of a tile
-  update_matrices_tiles_kernel<<<(unsigned)n_tiles, block, 0, (cudaStream_t)stream>>>(
-      r0, r1, flow, rim, sel, m, h, w);
+  auto kernel = bf16 ? update_matrices_tiles_kernel<true> : update_matrices_tiles_kernel<false>;
+  kernel<<<(unsigned)n_tiles, block, 0, (cudaStream_t)stream>>>(r0, r1, flow, rim, sel, m, h, w);
   return (int)cudaGetLastError();
 }
 

@@ -114,39 +114,67 @@ def poly_exp(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
     return farneback_cuda.poly_exp_cf(img.float().contiguous(), n, sigma).movedim(1, -1)
 
 
-def _bilinear_gather(r1: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor):
+def _lerp_x(v0: torch.Tensor, v1: torch.Tensor, ax: torch.Tensor, precision: str):
+    """One row's horizontal lerp (1 − ax)·v0 + ax·v1.
+
+    ``"bf16"`` is the TPU kernel's bf16 candidate MAC
+    (``ops/farneback_pallas.py`` ``_make_kernel``: the taps and the weights
+    ``ax`` and ``1 − ax``, the latter taken in fp32 first, rounded to
+    bfloat16; each product and the sum rounded to bfloat16, the
+    ``(1 − ax)·v0`` term first), upcast to fp32.
+    """
+    if precision == "bf16":
+        bf = torch.bfloat16
+        return (v0.to(bf) * (1.0 - ax).to(bf) + v1.to(bf) * ax.to(bf)).float()
+    return v0 * (1.0 - ax) + v1 * ax
+
+
+def _bilinear_gather(r1: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor,
+                     precision: str = "fp32", row_off: int = 0, h_glob: Optional[int] = None):
     """Bilinear sample of (B, H, W, C) at absolute coords (fx, fy).
 
-    Returns (sampled (B,H,W,C), inside (B,H,W)) where `inside` mirrors
+    Returns (sampled (B,h,w,C), inside (B,h,w)) where `inside` mirrors
     OpenCV's guard: floor coords within [0, W-2] × [0, H-2].  The floor
     is clamped to [-2, size] before the integer cast, which leaves the
     guard and the clamped taps unchanged and keeps huge flows finite.
+    The horizontal lerp runs in ``precision`` (``_lerp_x``), the vertical
+    blend in fp32.
+
+    Row-offset form (a height shard): r1 holds the rows [row_off − K,
+    row_off − K + H) of an image of ``h_glob`` rows and fy is a global
+    row; the guard also asks the floor row to lie inside r1.  The
+    defaults (row_off = K = 0, h_glob = H) are the whole image.
     """
-    b, h, w, c = r1.shape
+    b, h_ext, w, c = r1.shape
+    h, wo = fx.shape[-2:]
+    h_glob = h_ext if h_glob is None else h_glob
+    top_row = row_off - (h_ext - h) // 2  # global row of r1's row 0
     x1 = torch.floor(fx)
     y1 = torch.floor(fy)
     ax = (fx - x1)[..., None]
     ay = (fy - y1)[..., None]
     x1i = x1.clamp(-2, w).to(torch.long)
-    y1i = y1.clamp(-2, h).to(torch.long)
-    inside = (x1i >= 0) & (x1i < w - 1) & (y1i >= 0) & (y1i < h - 1)
+    y1i = y1.clamp(-2, h_glob).to(torch.long)
+    y_ext = y1i - top_row
+    inside = ((x1i >= 0) & (x1i < w - 1) & (y1i >= 0) & (y1i < h_glob - 1)
+              & (y_ext >= 0) & (y_ext < h_ext - 1))
     x0c = x1i.clamp(0, w - 1)
-    y0c = y1i.clamp(0, h - 1)
+    y0c = y_ext.clamp(0, h_ext - 1)
     x1c = (x1i + 1).clamp(0, w - 1)
-    y1c = (y1i + 1).clamp(0, h - 1)
+    y1c = (y_ext + 1).clamp(0, h_ext - 1)
 
-    flat = r1.reshape(b, h * w, c)
+    flat = r1.reshape(b, h_ext * w, c)
 
     def take(yi, xi):
-        lin = (yi * w + xi).reshape(b, h * w, 1).expand(b, h * w, c)
-        return torch.gather(flat, 1, lin).reshape(b, h, w, c)
+        lin = (yi * w + xi).reshape(b, h * wo, 1).expand(b, h * wo, c)
+        return torch.gather(flat, 1, lin).reshape(b, h, wo, c)
 
     v00 = take(y0c, x0c)
     v01 = take(y0c, x1c)
     v10 = take(y1c, x0c)
     v11 = take(y1c, x1c)
-    top = v00 * (1.0 - ax) + v01 * ax
-    bot = v10 * (1.0 - ax) + v11 * ax
+    top = _lerp_x(v00, v01, ax, precision)
+    bot = _lerp_x(v10, v11, ax, precision)
     return top * (1.0 - ay) + bot * ay, inside
 
 
@@ -199,19 +227,34 @@ def update_matrices_core(r0, sampled, inside, dx, dy, scale) -> torch.Tensor:
     return torch.stack([m0, m1, m2, m3, m4], dim=1)
 
 
-def update_matrices_cf_plain(r0: torch.Tensor, r1: torch.Tensor,
-                             flow: torch.Tensor) -> torch.Tensor:
-    """Normal equations from r0, r1 (B, 5, H, W) and flow (B, 2, H, W)
-    with channels (dx, dy) → M (B, 5, H, W)."""
+def update_matrices_rows_cf_plain(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
+                                  row_off: int, h_glob: int,
+                                  precision: str = "fp32") -> torch.Tensor:
+    """``update_matrices_cf_plain`` on a height shard: r0 and flow (B, ·, h,
+    W) are the rows [row_off, row_off + h) of an image of ``h_glob`` rows,
+    r1 (B, 5, h + 2K, W) the same rows with K rows of halo on each side.
+    Warp targets use global rows, and a target whose floor row lies
+    outside r1 counts as outside the image (r0-only constraint); the rim
+    damping uses global rows.  With row_off = K = 0 and h_glob = h this
+    is ``update_matrices_cf_plain``."""
     b, _, h, w = r0.shape
     dt, dev = r0.dtype, r0.device
     dx = flow[:, 0]
     dy = flow[:, 1]
     gx = torch.arange(w, dtype=dt, device=dev)[None, None, :]
-    gy = torch.arange(h, dtype=dt, device=dev)[None, :, None]
-    sampled, inside = _bilinear_gather(r1.movedim(1, -1), gx + dx, gy + dy)
-    scale = torch.as_tensor(_border_scale_np(h, w), device=dev)
+    gy = torch.arange(row_off, row_off + h, dtype=dt, device=dev)[None, :, None]
+    sampled, inside = _bilinear_gather(r1.movedim(1, -1), gx + dx, gy + dy, precision,
+                                       row_off, h_glob)
+    scale = torch.as_tensor(_border_scale_np(h_glob, w)[row_off:row_off + h], device=dev)
     return update_matrices_core(r0, sampled.movedim(-1, 1), inside, dx, dy, scale)
+
+
+def update_matrices_cf_plain(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
+                             precision: str = "fp32") -> torch.Tensor:
+    """Normal equations from r0, r1 (B, 5, H, W) and flow (B, 2, H, W)
+    with channels (dx, dy) → M (B, 5, H, W); the warp's horizontal lerp
+    in ``precision`` ("fp32" or "bf16", ``_lerp_x``)."""
+    return update_matrices_rows_cf_plain(r0, r1, flow, 0, r0.shape[2], precision)
 
 
 def tile_mask(sel: torch.Tensor, b: int, h: int, w: int, tile) -> torch.Tensor:
@@ -226,23 +269,26 @@ def tile_mask(sel: torch.Tensor, b: int, h: int, w: int, tile) -> torch.Tensor:
 
 
 def update_matrices_tiles_cf_plain(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
-                                   sel: torch.Tensor, m: torch.Tensor, tile) -> torch.Tensor:
+                                   sel: torch.Tensor, m: torch.Tensor, tile,
+                                   precision: str = "fp32") -> torch.Tensor:
     """``update_matrices_cf_plain`` with the tiles listed in ``sel`` copied
     into ``m`` (B, 5, H, W) in place; the other tiles of ``m`` are left as
     they were.  Returns ``m``."""
     b, _, h, w = r0.shape
     listed = tile_mask(sel, b, h, w, tile)[:, None]
-    m.copy_(torch.where(listed, update_matrices_cf_plain(r0, r1, flow), m))
+    m.copy_(torch.where(listed, update_matrices_cf_plain(r0, r1, flow, precision), m))
     return m
 
 
-def update_matrices(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def update_matrices(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
+                    precision: str = "fp32") -> torch.Tensor:
     """Channel-last form: r0, r1 (B, H, W, 5), flow (B, H, W, 2) → M
     (B, H, W, 5).  Runs the CUDA kernel for CUDA tensors."""
     m = farneback_cuda.update_matrices_cf(
         r0.movedim(-1, 1).contiguous(),
         r1.movedim(-1, 1).contiguous(),
         flow.movedim(-1, 1).contiguous(),
+        precision,
     )
     return m.movedim(1, -1)
 
@@ -435,6 +481,7 @@ def _level_loop(polys_of_level, n: int, h: int, w: int, params: FarnebackParams,
     """
     check_supported(params)
     poly, um, uf, um_tiles = _kernel_steps(kernels)
+    prec = params.warp_precision
     flow = None
     for k in range(params.num_levels(h, w), -1, -1):
         hk, wk = params.level_size(h, w, k)
@@ -454,7 +501,7 @@ def _level_loop(polys_of_level, n: int, h: int, w: int, params: FarnebackParams,
             tiles = box_tiles(params.roi_active_px[k], hk, wk)
         if tiles is None:
             for _ in range(params.iters_at(k)):
-                m = um(r0, r1, flow)
+                m = um(r0, r1, flow, prec)
                 flow = uf(m, params.winsize, params.gaussian_win)
             continue
         box = tile_box(tiles, hk, wk)
@@ -464,7 +511,7 @@ def _level_loop(polys_of_level, n: int, h: int, w: int, params: FarnebackParams,
         m = torch.empty((n, 5, hk, wk), dtype=torch.float32, device=device)
         flow = flow.contiguous()
         for _ in range(params.iters_at(k)):
-            um_tiles(r0, r1, flow, sel, m, TILE)
+            um_tiles(r0, r1, flow, sel, m, TILE, prec)
             uf(m, params.winsize, params.gaussian_win, box, flow)
     return flow.movedim(1, -1)
 

@@ -7,7 +7,13 @@ Farnebäck kernels:
 - ``update_matrices_cf``       ← ``update_matrices_banded_cf`` (K2);
 - ``update_flow_cf``           ← ``update_flow_fused_cf`` (K3), with a box
   mode for ROI dispatch;
-- ``update_matrices_tiles_cf`` ← ``update_matrices_banded_tiles_cf`` (K4).
+- ``update_matrices_tiles_cf`` ← ``update_matrices_banded_tiles_cf`` (K4);
+- ``update_matrices_rows_cf``  ← K2 on a height shard, the kernel of
+  ``parallel/spatial.py`` (JAX ``spatial.py _update_matrices_sharded``).
+
+K2 and K4 take ``precision`` ("fp32" or the TPU kernel's "bf16"
+horizontal lerp); the bf16 instances count their launches apart
+(``update_matrices_bf16``, ``update_matrices_tiles_bf16``).
 
 Each wrapper takes the plain PyTorch version of ``ops/farneback.py`` for
 a tensor on the CPU.  For a CUDA tensor it checks device, dtype, shape
@@ -24,10 +30,13 @@ import functools
 import numpy as np
 import torch
 
+from btcs_pnes_optical_flow_tpu_torch.config import WARP_PRECISIONS
 from btcs_pnes_optical_flow_tpu_torch.ops import _build
 from btcs_pnes_optical_flow_tpu_torch.ops import farneback as _plain
 
-LAUNCHES = {"poly_exp": 0, "update_matrices": 0, "update_flow": 0, "update_matrices_tiles": 0}
+LAUNCHES = {"poly_exp": 0, "update_matrices": 0, "update_flow": 0, "update_matrices_tiles": 0,
+            "update_matrices_bf16": 0, "update_matrices_tiles_bf16": 0,
+            "update_matrices_rows": 0}
 # Shared memory one block may use on sm_90 (232,448 bytes).
 _MAX_SMEM = 232448
 _P = ctypes.c_void_p
@@ -46,9 +55,9 @@ def library():
     lib = _build.load("farneback.cu").lib
     sigs = {
         "fb_poly_exp": [_P, _P, _P, _P, _LL, _I, _I, _I, _P],
-        "fb_update_matrices": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
+        "fb_update_matrices": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _P],
         "fb_update_flow": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-        "fb_update_matrices_tiles": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+        "fb_update_matrices_tiles": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
         "fb_poly_exp_smem_bytes": [_I],
         "fb_update_flow_smem_bytes": [_I],
     }
@@ -72,8 +81,11 @@ def _check(t: torch.Tensor, name: str, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(fn, *args) -> None:
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+def _launch(device: torch.device, fn, *args) -> None:
+    """Launch on ``device`` (the tensors' card, made current for the call)
+    and its current stream."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err:
         msg = library().fb_error_string(err).decode()
         raise RuntimeError(f"{fn.__name__} failed: CUDA error {err} ({msg})")
@@ -86,14 +98,6 @@ def _poly_consts(n: int, sigma: float, device: torch.device):
     g, xg, xxg, igs = _plain._poly_exp_tables(n, sigma)
     host = np.concatenate([g, xg, xxg, np.asarray(igs)]).astype(np.float32)
     return host, torch.as_tensor(host, device=device)
-
-
-@functools.lru_cache(maxsize=None)
-def _rim_scale(h: int, w: int, device: torch.device) -> torch.Tensor:
-    """[sy (h), sx (w)] rim-damping vectors; sy[y]·sx[x] in float32 is
-    bit-equal to ``_border_scale_np(h, w)[y, x]``."""
-    host = np.concatenate([_plain._border_scale_1d(h), _plain._border_scale_1d(w)])
-    return torch.as_tensor(host, device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -123,28 +127,73 @@ def poly_exp_cf(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
     if b:
         host, consts = _poly_consts(n, float(sigma), img.device)
         LAUNCHES["poly_exp"] += 1
-        _launch(lib.fb_poly_exp, img.data_ptr(), host.ctypes.data, consts.data_ptr(),
+        _launch(img.device, lib.fb_poly_exp, img.data_ptr(), host.ctypes.data, consts.data_ptr(),
                 out.data_ptr(), b, h, w, n)
     return out
 
 
-def update_matrices_cf(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """K2: r0, r1 (B, 5, H, W), flow (B, 2, H, W) → M (B, 5, H, W)."""
-    if r0.device.type == "cpu":
-        return _plain.update_matrices_cf_plain(r0, r1, flow)
+@functools.lru_cache(maxsize=None)
+def _rim_rows(h: int, w: int, row_off: int, h_glob: int, device: torch.device) -> torch.Tensor:
+    """[sy of the global rows [row_off, row_off + h), sx (w)]: the rim
+    damping of a height shard (row_off = 0, h = h_glob: the whole image);
+    sy[y]·sx[x] in float32 is bit-equal to the plain version's scale."""
+    sy = _plain._border_scale_1d(h_glob)[row_off:row_off + h]
+    return torch.as_tensor(np.concatenate([sy, _plain._border_scale_1d(w)]), device=device)
+
+
+def _bf16(precision: str) -> int:
+    if precision not in WARP_PRECISIONS:
+        raise ValueError(f"precision must be one of {WARP_PRECISIONS}, got {precision!r}")
+    return int(precision == "bf16")
+
+
+def _matrices(r0, r1, flow, row_off: int, halo: int, h_glob: int, precision: str, key: str):
+    """Launch K2 (key "update_matrices…", halo 0) or its row-offset instance
+    (key "update_matrices_rows") on CUDA tensors; r1 has h + 2·halo rows."""
     b, _, h, w = r0.shape
     _check(r0, "r0", (b, 5, h, w))
-    _check(r1, "r1", (b, 5, h, w))
+    _check(r1, "r1", (b, 5, h + 2 * halo, w))
     _check(flow, "flow", (b, 2, h, w))
     if r1.device != r0.device or flow.device != r0.device:
         raise ValueError("r0, r1 and flow must be on one device")
     out = torch.empty((b, 5, h, w), dtype=torch.float32, device=r0.device)
-    if b:
-        rim = _rim_scale(h, w, r0.device)
-        LAUNCHES["update_matrices"] += 1
-        _launch(library().fb_update_matrices, r0.data_ptr(), r1.data_ptr(), flow.data_ptr(),
-                rim.data_ptr(), out.data_ptr(), b, h, w)
+    if b and h:
+        rim = _rim_rows(h, w, row_off, h_glob, r0.device)
+        LAUNCHES[key] += 1
+        _launch(r0.device, library().fb_update_matrices, r0.data_ptr(), r1.data_ptr(),
+                flow.data_ptr(), rim.data_ptr(), out.data_ptr(), b, h, w, row_off, halo, h_glob,
+                int(key == "update_matrices_rows"), _bf16(precision))
     return out
+
+
+def update_matrices_cf(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
+                       precision: str = "fp32") -> torch.Tensor:
+    """K2: r0, r1 (B, 5, H, W), flow (B, 2, H, W) → M (B, 5, H, W); the
+    warp's horizontal lerp in ``precision``."""
+    bf16 = _bf16(precision)
+    if r0.device.type == "cpu":
+        return _plain.update_matrices_cf_plain(r0, r1, flow, precision)
+    key = "update_matrices_bf16" if bf16 else "update_matrices"
+    return _matrices(r0, r1, flow, 0, 0, r0.shape[2], precision, key)
+
+
+def update_matrices_rows_cf(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
+                            row_off: int, h_glob: int, precision: str = "fp32") -> torch.Tensor:
+    """K2's row-offset instance: M of the rows [row_off, row_off + h) of an
+    image of ``h_glob`` rows from r0, flow (B, ·, h, W) and r1 (B, 5, h +
+    2K, W), the shard's rows with K rows of halo on each side
+    (``update_matrices_rows_cf_plain``)."""
+    _bf16(precision)
+    h = r0.shape[2]
+    h_ext = r1.shape[2]
+    if (h_ext - h) % 2 or h_ext < h:
+        raise ValueError(f"r1 has {h_ext} rows; expected the shard's {h} plus 2K")
+    if not (0 <= row_off and row_off + h <= h_glob):
+        raise ValueError(f"rows [{row_off}, {row_off + h}) lie outside the image's {h_glob}")
+    if r0.device.type == "cpu":
+        return _plain.update_matrices_rows_cf_plain(r0, r1, flow, row_off, h_glob, precision)
+    return _matrices(r0, r1, flow, int(row_off), (h_ext - h) // 2, int(h_glob), precision,
+                     "update_matrices_rows")
 
 
 def update_flow_cf(m: torch.Tensor, winsize: int, gaussian_win: bool,
@@ -181,19 +230,21 @@ def update_flow_cf(m: torch.Tensor, winsize: int, gaussian_win: bool,
     if b:
         host, weights = _window_weights(winsize, bool(gaussian_win), m.device)
         LAUNCHES["update_flow"] += 1
-        _launch(lib.fb_update_flow, m.data_ptr(), host.ctypes.data, weights.data_ptr(),
+        _launch(m.device, lib.fb_update_flow, m.data_ptr(), host.ctypes.data, weights.data_ptr(),
                 out.data_ptr(), b, h, w, winsize, int(bool(gaussian_win)), y0, y1 - 1, x0, x1 - 1)
     return out
 
 
 def update_matrices_tiles_cf(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
-                             sel: torch.Tensor, m: torch.Tensor, tile) -> torch.Tensor:
+                             sel: torch.Tensor, m: torch.Tensor, tile,
+                             precision: str = "fp32") -> torch.Tensor:
     """K4: K2 over the listed tiles, in place into M; returns ``m``.
 
     ``sel`` (K,) int32 lists flat tile ids ``(b·n_i + i)·n_j + j`` on the
     ``tile = (tile_h, tile_w)`` lattice of the level, n_i = ⌈H/tile_h⌉,
     n_j = ⌈W/tile_w⌉.  M outside the listed tiles is left as it was.
     """
+    bf16 = _bf16(precision)
     b, _, h, w = r0.shape
     th, tw = (int(v) for v in tile)
     n_tiles = b * (-(-h // th)) * (-(-w // tw))
@@ -207,7 +258,7 @@ def update_matrices_tiles_cf(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Ten
         if lo < 0 or hi >= n_tiles:
             raise ValueError(f"sel holds tile ids in [{lo}, {hi}], outside [0, {n_tiles})")
     if r0.device.type == "cpu":
-        return _plain.update_matrices_tiles_cf_plain(r0, r1, flow, sel, m, (th, tw))
+        return _plain.update_matrices_tiles_cf_plain(r0, r1, flow, sel, m, (th, tw), precision)
     _check(r0, "r0", (b, 5, h, w))
     _check(r1, "r1", (b, 5, h, w))
     _check(flow, "flow", (b, 2, h, w))
@@ -217,9 +268,9 @@ def update_matrices_tiles_cf(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Ten
     if th * tw > 1024:
         raise ValueError(f"tile {tile} has more pixels than a block has threads (1024)")
     if sel.numel():
-        rim = _rim_scale(h, w, r0.device)
-        LAUNCHES["update_matrices_tiles"] += 1
-        _launch(library().fb_update_matrices_tiles, r0.data_ptr(), r1.data_ptr(),
+        rim = _rim_rows(h, w, 0, h, r0.device)
+        LAUNCHES["update_matrices_tiles_bf16" if bf16 else "update_matrices_tiles"] += 1
+        _launch(r0.device, library().fb_update_matrices_tiles, r0.data_ptr(), r1.data_ptr(),
                 flow.data_ptr(), rim.data_ptr(), sel.data_ptr(), m.data_ptr(),
-                sel.numel(), h, w, th, tw)
+                sel.numel(), h, w, th, tw, bf16)
     return m

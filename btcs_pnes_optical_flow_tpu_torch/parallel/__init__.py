@@ -1,13 +1,17 @@
-"""Cohort execution on the card.
+"""Cohorts and frames over one card or a mesh of them.
 
-Port of ``btcs_pnes_optical_flow_tpu/parallel``'s cohort path:
+Port of ``btcs_pnes_optical_flow_tpu/parallel``, single-controller as
+there (one process drives every device):
 
-- ``mesh``   — the devices a cohort runs on (one CUDA card);
-- ``cohort`` — a cohort's flow stage batched on the card, videos staged
-  once and sliced there (the JAX package shards it over a mesh);
-- ``runner`` — ``run_cohort``: many recordings → one metric row per
-  (video, ROI), failures isolated per video.
-
-The JAX package's spatial sharding (``spatial``, ``halo``) splits frames
-across chips; a 1080p frame fits one H100, so it has no counterpart here.
+- ``mesh``    — ``Mesh``, devices over named axes; ``make_mesh`` (the
+  machine's CUDA cards), ``cohort_sharding`` and ``replicated``;
+- ``cohort``  — a cohort step and a cohort's flow stage with the video axis
+  split over the mesh's "data" devices, videos staged once and sliced on
+  their device;
+- ``runner``  — ``run_cohort``: many recordings → one metric row per
+  (video, ROI), failures isolated per video;
+- ``halo``    — row-halo exchange between height shards, the sharded
+  window stencils;
+- ``spatial`` — ``farneback_flow_sharded``: one frame's height split over
+  the mesh's "spatial" devices, the port's kernels on each block.
 """

@@ -1,12 +1,15 @@
-"""Cohort-scale execution on the card.
+"""Cohort-scale execution on the card, one card or a mesh of them.
 
 Port of ``btcs_pnes_optical_flow_tpu/parallel/cohort.py`` (BASELINE.json
 config 4: a cohort of seizure videos, per-video metric tables).  The JAX
-package shards the video axis over a mesh of chips; on one CUDA card the
-cohort's videos are batched: ``cohort_step`` runs the V×B frame pairs of a
-cohort step as one batch of ``roi_body_flow``, and ``cohort_flow_batched``
-stages a uniform cohort once and runs every chunk of every video on the
-card, slicing clips that already lie there on the device.
+package shards the video axis over a mesh of chips; here one process
+drives the devices of a ``Mesh`` (``parallel/mesh.py``): each device takes
+a contiguous block of the videos, and the cohort reductions run on the
+mesh's first device.  ``cohort_step`` runs the V×B frame pairs of a cohort
+step as one batch of ``roi_body_flow`` per device; ``cohort_flow_sharded``
+stages a uniform cohort once and runs every chunk of every video on its
+block's device, slicing clips that already lie on a card there.  A
+one-device mesh is the batched path on that device.
 """
 
 from __future__ import annotations
@@ -25,10 +28,21 @@ from btcs_pnes_optical_flow_tpu_torch.models.flow import (
 from btcs_pnes_optical_flow_tpu_torch.models.pc1 import pc1_from_flow_batch
 from btcs_pnes_optical_flow_tpu_torch.models.pipeline import FlowStageResult
 from btcs_pnes_optical_flow_tpu_torch.ops.cvx import fill_poly_mask
+from btcs_pnes_optical_flow_tpu_torch.parallel.mesh import (
+    Mesh,
+    as_mesh,
+    cohort_sharding,
+    replicated,
+)
 from btcs_pnes_optical_flow_tpu_torch.utils.device import resolve_device
 
-# Chunks in flight before the oldest is read back (as models/pipeline.py).
+# Chunks in flight per device before the oldest is read back (as
+# models/pipeline.py).
 _PIPELINE_DEPTH = 2
+# A cohort step's inputs: frames uint8, axes float32, masks and live flags
+# bool; the masks are replicated, the rest split on the video axis.
+_STEP_DTYPES = (torch.uint8, torch.uint8, torch.float32, torch.float32, torch.bool, torch.bool)
+_MASKS = 4
 
 
 class CohortStep(NamedTuple):
@@ -40,30 +54,28 @@ class CohortStep(NamedTuple):
 
 
 def shard_cohort_inputs(mesh, prev, curr, ex, ey, masks, t_valid):
-    """Place a cohort step's inputs on the mesh's one device: frames
-    uint8, axes float32, masks and live flags bool."""
-    (dev,) = mesh
-    dtypes = (torch.uint8, torch.uint8, torch.float32, torch.float32, torch.bool, torch.bool)
-    return tuple(torch.as_tensor(x, dtype=dt, device=dev)
-                 for x, dt in zip((prev, curr, ex, ey, masks, t_valid), dtypes))
+    """Place a cohort step's inputs on the mesh's "data" devices: the video
+    axis of frames (uint8), axes (float32) and live flags (bool) split into
+    contiguous blocks (``cohort_sharding``), the masks (bool) copied to each
+    (``replicated``); an input given as a list of one block per device is
+    taken as placed.  With one device the tensors themselves, else a list of
+    blocks per input."""
+    mesh = as_mesh(mesh)
+    data = Mesh(mesh.axis_devices("data"))
+
+    def place(k, x, dtype):
+        if isinstance(x, (list, tuple)) and len(x) == len(data):
+            return [torch.as_tensor(b, dtype=dtype).to(d) for b, d in zip(x, data)]
+        x = torch.as_tensor(x, dtype=dtype)
+        return replicated(data, x) if k == _MASKS else cohort_sharding(mesh, x)
+
+    placed = tuple(place(k, x, dt) for k, (x, dt) in enumerate(
+        zip((prev, curr, ex, ey, masks, t_valid), _STEP_DTYPES)))
+    return tuple(p[0] for p in placed) if len(data) == 1 else placed
 
 
-def cohort_step(
-    prev,      # (V, B, H, W) frame-pair batches per video
-    curr,
-    ex,        # (V, B, 2)
-    ey,
-    masks,     # (R, H, W)
-    t_valid,   # (V, B) bool — which pairs are live
-    flow_params: FarnebackParams = FarnebackParams(),
-    pca_params: PCAParams = PCAParams(),
-    *,
-    device,
-) -> CohortStep:
-    """One cohort step on ``device``: flow features and dynamic PC1 per
-    video, and the cohort mean of the magnitude per ROI (NaN-ignoring)."""
-    prev, curr, ex, ey, masks, t_valid = shard_cohort_inputs(
-        (resolve_device(device),), prev, curr, ex, ey, masks, t_valid)
+def _step_local(prev, curr, ex, ey, masks, t_valid, flow_params, pca_params):
+    """(vx, vy, mag, pc1) of one device's videos, where they lie."""
     v, b = prev.shape[:2]
     feats = roi_body_flow(prev.flatten(0, 1), curr.flatten(0, 1), ex.flatten(0, 1),
                           ey.flatten(0, 1), masks, flow_params)
@@ -76,30 +88,67 @@ def cohort_step(
     vx_t, vy_t = (torch.cat([nan1, f], dim=1).transpose(1, 2).reshape(v * r, b + 1)
                   for f in (vx, vy))
     pc1 = pc1_from_flow_batch(vx_t, vy_t, pca_params).reshape(v, r, b + 1)
+    return vx, vy, mag, pc1
+
+
+def cohort_step(
+    prev,      # (V, B, H, W) frame-pair batches per video
+    curr,
+    ex,        # (V, B, 2)
+    ey,
+    masks,     # (R, H, W)
+    t_valid,   # (V, B) bool — which pairs are live
+    flow_params: FarnebackParams = FarnebackParams(),
+    pca_params: PCAParams = PCAParams(),
+    *,
+    device=None,
+    mesh=None,
+) -> CohortStep:
+    """One cohort step: flow features and dynamic PC1 per video, and the
+    cohort mean of the magnitude per ROI (NaN-ignoring).
+
+    On ``device``, or over ``mesh``: each "data" device computes its block
+    of videos where it lies (every block is enqueued before any is read
+    back), and the results and the cohort mean are gathered on the mesh's
+    first device.  Inputs may be host arrays, tensors, or the blocks
+    ``shard_cohort_inputs`` gives.
+    """
+    if (device is None) == (mesh is None):
+        raise ValueError("cohort_step takes a device or a mesh")
+    mesh = Mesh([resolve_device(device)]) if mesh is None else as_mesh(mesh)
+    placed = shard_cohort_inputs(mesh, prev, curr, ex, ey, masks, t_valid)
+    if isinstance(placed[0], torch.Tensor):
+        parts = [_step_local(*placed, flow_params, pca_params)]
+    else:
+        parts = [_step_local(*block, flow_params, pca_params) for block in zip(*placed)]
+    home = mesh[0]
+    vx, vy, mag, pc1 = (torch.cat([p[j].to(home) for p in parts]) for j in range(4))
     return CohortStep(vx=vx, vy=vy, mag=mag, pc1=pc1,
                       cohort_mean_mag=torch.nanmean(mag, dim=(0, 1)))
 
 
-def cohort_flow_batched(items, flows, config, chunk_pairs: int, *, device):
-    """Stage A of ``run_cohort`` with the cohort batched on ``device``.
+def cohort_flow_sharded(items, flows, config, chunk_pairs: int, mesh):
+    """Stage A of ``run_cohort`` with the video axis split over ``mesh``.
 
     Eligible when every item is a 3-D uint8 clip, all NumPy arrays or all
-    tensors on ``device``, of one shape and with the same number of ROIs
-    (the JAX package's rule for its sharded path).  Fills ``flows[i]`` for
-    the items it runs and returns a per-item flag; the caller runs the
+    tensors, of one shape and with the same number of ROIs (the JAX
+    package's rule for its sharded path).  The videos go in contiguous
+    blocks to the mesh's "data" devices; per chunk, every device's videos
+    are enqueued before the oldest chunk is read back.  Fills ``flows[i]``
+    for the items it runs and returns a per-item flag; the caller runs the
     rest per video.  Runs ``config.flow`` as given, without ROI dispatch,
     as the JAX package does; its ROI features equal the dispatched ones.
     Per-video semantics (NaN frame 0, invalid axes masked, one chunk shape
-    with the tail padded) are ``run_flow_stage``'s; a non-zero clip count
-    raises, as there.
+    with the tail padded) are ``run_flow_stage``'s, and each video's
+    features do not depend on the mesh; a non-zero clip count raises, as
+    there.
     """
-    device = resolve_device(device)
+    devs = as_mesh(mesh).axis_devices("data")
     n = len(items)
     done = [False] * n
     vids = [it.video for it in items]
-    on_device = all(isinstance(v, torch.Tensor) and v.ndim == 3 and v.device == device
-                    for v in vids)
-    if not on_device and not all(isinstance(v, np.ndarray) and v.ndim == 3 for v in vids):
+    tensors = all(isinstance(v, torch.Tensor) and v.ndim == 3 for v in vids)
+    if not tensors and not all(isinstance(v, np.ndarray) and v.ndim == 3 for v in vids):
         return done
     if len({tuple(v.shape) for v in vids}) != 1:
         return done
@@ -110,8 +159,12 @@ def cohort_flow_batched(items, flows, config, chunk_pairs: int, *, device):
     if n_pairs_total <= 0:
         return done
 
+    blocks = [blk.tolist() for blk in np.array_split(np.arange(n), len(devs))]
+    dev_of = {i: devs[d] for d, blk in enumerate(blocks) for i in blk}
+    # One video of each device in turn, so every device has work queued.
+    order = [blk[j] for j in range(max(map(len, blocks))) for blk in blocks if j < len(blk)]
     masks = [torch.as_tensor(np.stack([fill_poly_mask(h, w, p) for p in it.roi_polygons]),
-                             device=device) for it in items]
+                             device=dev_of[i]) for i, it in enumerate(items)]
     n_roi = masks[0].shape[0]
     # Per-video timestamps and axes (array clips have no container
     # timestamps: t = idx/fps, optical_flow.py:110-119).
@@ -143,14 +196,16 @@ def cohort_flow_batched(items, flows, config, chunk_pairs: int, *, device):
             vals[inv] = np.nan
             dst[s : s + b_eff] = vals
 
+    depth = _PIPELINE_DEPTH * len(devs)
     for s in range(0, n_pairs_total, chunk_pairs):
         b_eff = min(chunk_pairs, n_pairs_total - s)
-        for i in range(n):
-            if on_device:
-                fr = vids[i][s : s + chunk_pairs + 1].to(torch.uint8)
+        for i in order:
+            dev = dev_of[i]
+            if tensors:
+                fr = vids[i][s : s + chunk_pairs + 1].to(dev, torch.uint8)
             else:
                 fr = torch.as_tensor(np.asarray(vids[i][s : s + chunk_pairs + 1], np.uint8),
-                                     device=device)
+                                     device=dev)
             if b_eff < chunk_pairs:  # one chunk shape: repeat the last frame
                 fr = torch.cat([fr, fr[-1:].expand(chunk_pairs - b_eff, h, w)])
             ex_c = np.zeros((chunk_pairs, 2), np.float32)
@@ -158,10 +213,10 @@ def cohort_flow_batched(items, flows, config, chunk_pairs: int, *, device):
             ex_c[:b_eff] = ex_p[i][s : s + b_eff]
             ey_c[:b_eff] = ey_p[i][s : s + b_eff]
             feats, clips = roi_body_flow_seq(
-                fr, torch.as_tensor(ex_c, device=device), torch.as_tensor(ey_c, device=device),
+                fr, torch.as_tensor(ex_c, device=dev), torch.as_tensor(ey_c, device=dev),
                 masks[i], config.flow)
             pending.append((i, s, b_eff, feats, clips))
-            while len(pending) > _PIPELINE_DEPTH:
+            while len(pending) > depth:
                 resolve(pending.pop(0))
     for entry in pending:
         resolve(entry)

@@ -12,7 +12,8 @@ Stages:
 - A (flow): the videos run through ``run_flow_stage`` on a thread pool of
   ``flow_workers``, so one video's decode and read-back overlap the next
   one's device work; with a ``mesh`` a uniform cohort of array clips takes
-  the batched path (``parallel/cohort.py``) and the rest run per video;
+  ``cohort_flow_sharded`` (``parallel/cohort.py``: contiguous blocks of
+  videos, one per device of the mesh) and the rest run per video;
 - B (PC1): every (video, ROI) waveform of equal length goes through one
   batched band-pass + PCA call (grouped by exact length, never padded: a
   NaN-padded PCA window is not a shorter input);
@@ -37,7 +38,8 @@ from btcs_pnes_optical_flow_tpu_torch.dataio import contracts
 from btcs_pnes_optical_flow_tpu_torch.models import metrics as metrics_model
 from btcs_pnes_optical_flow_tpu_torch.models import pipeline
 from btcs_pnes_optical_flow_tpu_torch.models.pc1 import pc1_from_flow_batch
-from btcs_pnes_optical_flow_tpu_torch.parallel.cohort import cohort_flow_batched
+from btcs_pnes_optical_flow_tpu_torch.parallel.cohort import cohort_flow_sharded
+from btcs_pnes_optical_flow_tpu_torch.parallel.mesh import as_mesh
 from btcs_pnes_optical_flow_tpu_torch.utils.device import resolve_device
 from btcs_pnes_optical_flow_tpu_torch.utils.timing import StageTimer, logger
 
@@ -76,13 +78,17 @@ def run_cohort(
 ) -> List[dict]:
     """Run the full pipeline for every recording on ``device``; one row per
     (video, ROI), columns ``contracts.COHORT_COLUMNS``.  Failures are
-    isolated per video.  ``mesh`` (``make_mesh()``, the one device) takes
-    the batched flow path for a uniform cohort of array clips.  A ``timer``
-    collects the stages' wall time (flow items: frames; PC1 and metrics
-    items: rows)."""
+    isolated per video.  With a ``mesh`` (``make_mesh(n)``, or a
+    ``Mesh`` layout) a uniform cohort of array clips runs its flow stage
+    over the mesh's devices; ``device`` must be the mesh's first device,
+    where stages B and C run, so the rows equal the one-device run's.  A
+    ``timer`` collects the stages' wall time (flow items: frames; PC1 and
+    metrics items: rows)."""
     device = resolve_device(device)
-    if mesh is not None and tuple(mesh) != (device,):
-        raise ValueError(f"mesh {tuple(mesh)} is not the run's device {device}")
+    if mesh is not None:
+        mesh = as_mesh(mesh)
+        if mesh[0] != device:
+            raise ValueError(f"the mesh's first device {mesh[0]} is not the run's device {device}")
     timer = timer if timer is not None else StageTimer(device)
     n = len(items)
     flows: List[Optional[pipeline.FlowStageResult]] = [None] * n
@@ -104,7 +110,7 @@ def run_cohort(
     with timer.timed("flow"):
         rest = list(range(n))
         if mesh is not None:
-            done = cohort_flow_batched(items, flows, config, chunk_pairs, device=device)
+            done = cohort_flow_sharded(items, flows, config, chunk_pairs, mesh)
             rest = [i for i in rest if not done[i]]
         if len(rest) > 1 and flow_workers > 1:
             with ThreadPoolExecutor(max_workers=flow_workers) as pool:

@@ -1,7 +1,8 @@
 """Drive the PyTorch port's paths once on one CUDA card: flow + PC1
 (Farnebäck), the TV-L1 flow engine, the production pipeline run_full
 (decode → ROI-dispatched flow → PC1 → metrics), the cohort runner, the
-reference-compatible CLIs and streaming PC1.
+reference-compatible CLIs, streaming PC1, the JAX bench's bf16 flow config
+and the height-sharded flow.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -60,8 +61,21 @@ Phases (any failed check raises, so the exit code is non-zero):
              summary;
 11. PC1 engines — pc1_from_flow with the "scan" and "assoc" band-pass on
              phase 4's features (times, agreement), and pc1_streaming
-             ("assoc") on 18000 samples against the full signal.
-Phases 9–11 print their seconds.
+             ("assoc") on 18000 samples against the full signal;
+12. bench config — run_full on the 513-frame clip under the JAX bench's flow
+             config (bench.py:150-155: the bf16 warp, iteration schedule
+             (3, 3, 2, 1)): launches of K2's and K4's bf16 instances against
+             the ROI-box schedule, the flow's EPE in the ROI against the fp32
+             flow of phase 4's pairs (mean < 0.05 px), PC1 against phase 8's
+             (corr ≥ 0.999), ROI-frames/s;
+13. sharded — farneback_flow_sharded on 16 pairs at 480×640 over 4 shards
+             and at 1080×1920 over 3, on the cards present or an explicit
+             cuda:0 layout when there are fewer: launches (K2's row-offset
+             instance), max |Δ| against the unsharded flow (≤ 1e-4 px), times.
+Phase 3 and 3b also hold K2's and K4's bf16 instances and K2's row-offset
+instance against their plain versions; phase 9 runs run_cohort over a mesh
+of every card present and, with one card, over a 4-shard cuda:0 layout
+(rows equal to the batched run's).  Phases 9–13 print their seconds.
 
 Every kernel row of the kernels JSON carries its bound: the larger of the
 bytes it must move (each input read once, each output written once) over
@@ -96,11 +110,23 @@ SOURCE = "btcs_pnes_optical_flow_tpu_torch/csrc/farneback.cu"
 TV_SOURCE = "btcs_pnes_optical_flow_tpu_torch/csrc/tvl1.cu"
 PALLAS = "btcs_pnes_optical_flow_tpu/ops/farneback_pallas.py"
 TV_PALLAS = "btcs_pnes_optical_flow_tpu/ops/tvl1_pallas.py"
+SPATIAL = "btcs_pnes_optical_flow_tpu/parallel/spatial.py"
 TV_PAIRS = 16  # the JAX bench's TV-L1 line: render_clip(17, seed=2)
 # The JAX bench's cohort line (bench.py:401-496): 32 clips of 129 frames,
 # chunks of 128 pairs.
 COHORT_VIDEOS, COHORT_FRAMES, COHORT_CHUNK = 32, 129, 128
 STREAM_SAMPLES = 18000  # 10 minutes at 30 fps
+# The JAX bench's flow config (bench.py:150-155): the bf16 warp, the
+# iteration schedule and the coarse reach (ignored by the port's direct
+# sampler); run_flow_stage adds the ROI boxes.
+BENCH_FLOW = dict(warp_precision="bf16", iter_schedule=(3, 3, 2, 1), warp_coarse_reach=(4, 8, 8))
+BENCH_EPE_PX = 0.05  # tests/test_pallas_kernels.py's bf16 gate
+PC1_CORR = 0.999  # BASELINE.md's PC1 contract
+# Height sharding: 16 pairs (the K2 rows instance's main path) at 480×640 over
+# 4 shards and at 1080×1920 over 3 (1080 = 3·8·45), warp_halo 16.
+SHARD_PAIRS, WARP_HALO = 16, 16
+SHARD_CASES = ((480, 640, 4), (1080, 1920, 3))
+SHARD_TOL_PX = 1e-4  # tests/test_spatial.py's sharded-vs-unsharded bar
 # (name, K, TPU kernel it replaces, tolerance against the plain version
 # relative to the plain output's largest magnitude, and why).
 KERNELS = (
@@ -112,6 +138,17 @@ KERNELS = (
      "bit-equal: the plain window sums in their order, then the same solve"),
     ("update_matrices_tiles", "K4", f"{PALLAS}:1040", 0.0,
      "bit-equal: K2's device function, the plain version's operations in their order"),
+    # warp_precision="bf16": the TPU kernel's bf16 candidate MAC
+    # (farneback_pallas.py:313, 470-471, 486-487, 520-532).
+    ("update_matrices_bf16", "K2 bf16", f"{PALLAS}:566", 1e-5,
+     "K2's bar: the plain bf16 lerp (each bf16 step rounded to nearest even) and fp32 "
+     "operations in their order, without FMA contraction"),
+    ("update_matrices_tiles_bf16", "K4 bf16", f"{PALLAS}:1040", 0.0,
+     "bit-equal: K2's bf16 device function, the plain version's operations in their order"),
+    # K2 on a height shard: parallel/spatial.py's warp and assembly.
+    ("update_matrices_rows", "K2 rows", f"{SPATIAL}:103", 1e-5,
+     "K2's bar: K2's device function with global rows and a halo band, the plain guard and "
+     "fp32 operations in their order"),
 )
 FLOW_TOL_PX = 1e-3  # the JAX package's fused-vs-exact 480p bar
 MAIN_REPS = 10  # CUDA-event repetitions per round at the main path's shape
@@ -252,14 +289,23 @@ def phase_kernels(clip, params, device):
              "random half": torch.as_tensor(rand, device=device)}
     print(f"K4 lists: ROI box tiles {tiles0} of the {-(-h // th)}x{-(-w // tw)} lattice "
           f"({lists['ROI box'].numel()} tiles), random half ({rand.size} of {n_tiles})")
-    k4_bufs = {key: (base.clone(), base.clone()) for key in lists}
+    k4_bufs = {}
 
-    def k4_calls(key):
-        sel, (mk, mp) = lists[key], k4_bufs[key]
-        return (lambda: fc.update_matrices_tiles_cf(r0, r1, flow_cf, sel, mk, fb.TILE),
-                lambda: fb.update_matrices_tiles_cf_plain(r0, r1, flow_cf, sel, mp, fb.TILE))
+    def k4_calls(key, precision="fp32"):
+        sel = lists[key]
+        mk, mp = k4_bufs.setdefault((key, precision), (base.clone(), base.clone()))
+        return (lambda: fc.update_matrices_tiles_cf(r0, r1, flow_cf, sel, mk, fb.TILE, precision),
+                lambda: fb.update_matrices_tiles_cf_plain(r0, r1, flow_cf, sel, mp, fb.TILE,
+                                                          precision))
 
     calls["update_matrices_tiles"] = k4_calls("ROI box")
+    calls["update_matrices_tiles_bf16"] = k4_calls("ROI box", "bf16")
+    calls["update_matrices_bf16"] = (lambda: fc.update_matrices_cf(r0, r1, flow_cf, "bf16"),
+                                     lambda: fb.update_matrices_cf_plain(r0, r1, flow_cf, "bf16"))
+    # K2 rows over the 4 row blocks of these pairs with the sharded path's band.
+    rows_args, h_loc, k_rows = _row_blocks(r0, r1, flow_cf, SHARD_CASES[0][2], WARP_HALO)
+    calls["update_matrices_rows"] = _rows_calls(rows_args)
+    print(f"K2 rows: {len(rows_args)} blocks of {h_loc} rows, halo band {k_rows} rows")
     rows = {}
     for name, kid, replaces, rtol, why in KERNELS:
         rows[name] = _check_and_time(name, kid, SOURCE, replaces, *calls[name],
@@ -269,12 +315,12 @@ def phase_kernels(clip, params, device):
                            rtol=rtol, abs_tol=None, why=why + "; random half list")
     rows["update_matrices_tiles"]["max_abs_err"] = max(
         rows["update_matrices_tiles"]["max_abs_err"], half["max_abs_err"])
-    for key, sel in lists.items():
-        listed = fb.tile_mask(sel, CHECK_PAIRS, h, w, fb.TILE)[:, None].expand_as(base)
-        for buf in k4_bufs[key]:
+    for (key, prec), bufs in k4_bufs.items():
+        listed = fb.tile_mask(lists[key], CHECK_PAIRS, h, w, fb.TILE)[:, None].expand_as(base)
+        for buf in bufs:
             if not torch.equal(buf[~listed], base[~listed]):
-                raise AssertionError(f"K4 ({key}) wrote outside its listed tiles")
-    print("K4: unlisted tiles bitwise unchanged for both lists")
+                raise AssertionError(f"K4 {prec} ({key}) wrote outside its listed tiles")
+    print(f"K4: unlisted tiles bitwise unchanged for {sorted(k4_bufs)}")
 
     px = CHECK_PAIRS * h * w
     n_listed = int(fb.tile_mask(lists["ROI box"], CHECK_PAIRS, h, w, fb.TILE).sum())
@@ -286,6 +332,12 @@ def phase_kernels(clip, params, device):
                NO_LIBRARY["update_flow"])
     _set_bound(rows["update_matrices_tiles"], n_listed, *_k2_cost(CHECK_PAIRS), None,
                NO_LIBRARY["update_matrices_tiles"])
+    _set_bound(rows["update_matrices_bf16"], px, *_k2_cost(CHECK_PAIRS, "bf16"), None,
+               NO_LIBRARY["update_matrices"])
+    _set_bound(rows["update_matrices_tiles_bf16"], n_listed, *_k2_cost(CHECK_PAIRS, "bf16"), None,
+               NO_LIBRARY["update_matrices_tiles"])
+    _set_bound(rows["update_matrices_rows"], px, *_k2_rows_cost(h_loc, k_rows), None,
+               NO_LIBRARY["update_matrices"])
 
     # K3 box mode over the level-0 box, against its plain version.
     box = fb.tile_box(tiles0, h, w)
@@ -317,11 +369,48 @@ def _check_box_mode(m, params, box, flow_cf):
 
 # Bytes and float32 operations per pixel of each kernel, from its plain
 # version: every input read once and every output written once.
-def _k2_cost(b):
+# bf16 adds per pixel 2 weight roundings and, per channel and row, 2 tap
+# roundings, 2 product roundings and a sum rounding (a rounding counts as
+# one operation): 2 + 5·2·5.
+K2_BF16_EXTRA_OPS = 52
+
+
+def _k2_cost(b, precision="fp32"):
     """K2 and K4 over b pairs: r0 and r1 are consecutive frames of one
     (b+1)-frame expansion, so 5 planes of b+1 frames are read once, then
     flow in and M out; the warp and the assembly."""
-    return 4 * (5 * (b + 1) / b + 2 + 5), 70
+    return 4 * (5 * (b + 1) / b + 2 + 5), 70 + (K2_BF16_EXTRA_OPS if precision == "bf16" else 0)
+
+
+def _k2_rows_cost(h_loc, k):
+    """K2's row-offset instance on a block of h_loc rows: r0, flow in and M
+    out for its pixels, r1 over its h_loc + 2k rows; K2's operations."""
+    return 4 * (5 + 5 * (h_loc + 2 * k) / h_loc + 2 + 5), 70
+
+
+def _row_blocks(r0, r1, flow, n_shards, warp_halo):
+    """K2 rows instance arguments for each of n_shards row blocks of the
+    level (B, ·, H, W) planes, r1 extended by the path's halo band
+    (parallel/spatial.py _update_matrices_sharded)."""
+    from btcs_pnes_optical_flow_tpu_torch.parallel import halo
+
+    devs = [r0.device] * n_shards
+    h = r0.shape[2]
+    h_loc = h // n_shards
+    k = min(warp_halo, h_loc)
+    blocks = zip(halo.split_rows(r0, devs), halo.exchange_rows(halo.split_rows(r1, devs), k),
+                 halo.split_rows(flow, devs))
+    return [(a.contiguous(), e.contiguous(), f.contiguous(), i * h_loc, h)
+            for i, (a, e, f) in enumerate(blocks)], h_loc, k
+
+
+def _rows_calls(args):
+    """Kernel and plain calls of the rows instance over every block."""
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
+
+    return (lambda: tuple(fc.update_matrices_rows_cf(*a) for a in args),
+            lambda: tuple(fb.update_matrices_rows_cf_plain(*a) for a in args))
 
 
 def _k1_cost(n):
@@ -446,8 +535,21 @@ def phase_kernels_main(clip, params, device, rows, box):
                max_abs_err=max(row["max_abs_err"], b8["max_abs_err"]))
     rows[name] = row
     _set_bound(row, CHUNK * h * w, *_k2_cost(CHUNK), None, NO_LIBRARY[name])
+    name, kid, replaces, rtol, why = next(k for k in KERNELS if k[0] == "update_matrices_bf16")
+    b8 = rows[name]
+    row = _check_and_time(name, kid, SOURCE, replaces,
+                          lambda: fc.update_matrices_cf(r0, r1, flow, "bf16"),
+                          lambda: fb.update_matrices_cf_plain(r0, r1, flow, "bf16"), rtol=rtol,
+                          abs_tol=None, why=why, reps=MAIN_REPS)
+    row.update(b8_ms=b8["ms"], b8_plain_ms=b8["plain_ms"],
+               max_abs_err=max(row["max_abs_err"], b8["max_abs_err"]))
+    rows[name] = row
+    _set_bound(row, CHUNK * h * w, *_k2_cost(CHUNK, "bf16"), None, NO_LIBRARY["update_matrices"])
+    print(f"K2 bf16 vs fp32 at the main path's shape: {row['ms']:.4f} vs "
+          f"{rows['update_matrices']['ms']:.4f} ms (the same bytes)")
     m = fc.update_matrices_cf(r0, r1, flow)
     _k4_main(rows, params, poly, flow, m, h, w, device)
+    _k4_main(rows, params, poly, flow, m, h, w, device, "bf16")
     del poly
     name, kid, replaces, rtol, why = next(k for k in KERNELS if k[0] == "update_flow")
     b8 = rows[name]
@@ -469,9 +571,36 @@ def phase_kernels_main(clip, params, device, rows, box):
     print(f"K3 box mode at the main path's shape: kernel {box_ms:.4f} ms, plain "
           f"{box_plain_ms:.4f} ms, bound {box_bound:.4f} ms by bytes ({box_px} px), share "
           f"{100 * box_bound / box_ms:.1f}%")
+    del m
+    _rows_main(clip, params, rows, device)
 
 
-def _k4_main(rows, params, poly, flow, m, h, w, device):
+def _rows_main(clip, params, rows, device):
+    """K2 rows at its main path's shape: level 0 of phase 13's 480×640 case,
+    16 pairs over 4 row blocks with the 16-row band."""
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
+
+    h, w, n_shards = SHARD_CASES[0]
+    frames = torch.as_tensor(clip[: SHARD_PAIRS + 1], device=device)
+    lv = fb._level_image(frames.float(), 0, params, h, w)[0].contiguous()
+    poly = fc.poly_exp_cf(lv, params.poly_n, params.poly_sigma)
+    flow = fb.farneback_flow(frames[:-1], frames[1:], params).movedim(-1, 1).contiguous()
+    args, h_loc, k = _row_blocks(poly[:-1].contiguous(), poly[1:].contiguous(), flow, n_shards,
+                                 WARP_HALO)
+    name, kid, replaces, rtol, why = next(k for k in KERNELS if k[0] == "update_matrices_rows")
+    b8 = rows[name]
+    row = _check_and_time(name, kid, SOURCE, replaces, *_rows_calls(args), rtol=rtol,
+                          abs_tol=None, why=why + f"; {n_shards} blocks of {h_loc} rows",
+                          reps=MAIN_REPS)
+    row.update(b8_ms=b8["ms"], b8_plain_ms=b8["plain_ms"],
+               max_abs_err=max(row["max_abs_err"], b8["max_abs_err"]))
+    rows[name] = row
+    _set_bound(row, SHARD_PAIRS * h * w, *_k2_rows_cost(h_loc, k), None,
+               NO_LIBRARY["update_matrices"])
+
+
+def _k4_main(rows, params, poly, flow, m, h, w, device, precision="fp32"):
     """K4 at the main path's shape: the 256 pairs of one chunk over the tiles
     of the bench ROI's level-0 box, into the chunk's level-0 M."""
     from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
@@ -483,20 +612,21 @@ def _k4_main(rows, params, poly, flow, m, h, w, device):
     sel = fb.tile_list(b, tiles0, h, w, device)
     r0, r1 = poly[:-1], poly[1:]
     mk, mp = m.clone(), m.clone()
-    name, kid, replaces, rtol, why = next(k for k in KERNELS if k[0] == "update_matrices_tiles")
+    key = "update_matrices_tiles" + ("_bf16" if precision == "bf16" else "")
+    name, kid, replaces, rtol, why = next(k for k in KERNELS if k[0] == key)
     b8 = rows[name]
-    row = _check_and_time(name, kid, SOURCE, replaces,
-                          lambda: fc.update_matrices_tiles_cf(r0, r1, flow, sel, mk, fb.TILE),
-                          lambda: fb.update_matrices_tiles_cf_plain(r0, r1, flow, sel, mp, fb.TILE),
-                          rtol=rtol, abs_tol=None, why=why + f"; {b} pairs, ROI box list",
-                          reps=MAIN_REPS)
+    row = _check_and_time(
+        name, kid, SOURCE, replaces,
+        lambda: fc.update_matrices_tiles_cf(r0, r1, flow, sel, mk, fb.TILE, precision),
+        lambda: fb.update_matrices_tiles_cf_plain(r0, r1, flow, sel, mp, fb.TILE, precision),
+        rtol=rtol, abs_tol=None, why=why + f"; {b} pairs, ROI box list", reps=MAIN_REPS)
     row.update(b8_ms=b8["ms"], b8_plain_ms=b8["plain_ms"],
                max_abs_err=max(row["max_abs_err"], b8["max_abs_err"]))
     rows[name] = row
     n_listed = int(fb.tile_mask(sel, b, h, w, fb.TILE).sum())
-    print(f"K4 at the main path's shape: {sel.numel()} tiles of {fb.TILE} ({n_listed} px; the "
-          f"wrapper's time includes its one read-back of sel's range)")
-    _set_bound(row, n_listed, *_k2_cost(b), None, NO_LIBRARY[name])
+    print(f"{kid} at the main path's shape: {sel.numel()} tiles of {fb.TILE} ({n_listed} px; "
+          f"the wrapper's time includes its one read-back of sel's range)")
+    _set_bound(row, n_listed, *_k2_cost(b, precision), None, NO_LIBRARY["update_matrices_tiles"])
     del mk, mp
 
 
@@ -593,8 +723,8 @@ def phase_slice(clip, params, device, smi, rows, flow_plain):
     n_chunks = len(chunks)
     n_lev = params.num_levels(H, W) + 1
     n_it = sum(params.iters_at(k) for k in range(n_lev))
-    want = {"poly_exp": n_lev * n_chunks, "update_matrices": n_it * n_chunks,
-            "update_flow": n_it * n_chunks, "update_matrices_tiles": 0}
+    want = dict(dict.fromkeys(fc.LAUNCHES, 0), poly_exp=n_lev * n_chunks,
+                update_matrices=n_it * n_chunks, update_flow=n_it * n_chunks)
     print(f"launches over {n_chunks} chunks: {launches} (expected {want}: "
           f"{n_lev}/{n_it}/{n_it} per chunk)")
     if launches != want:
@@ -640,15 +770,18 @@ def phase_slice(clip, params, device, smi, rows, flow_plain):
 
 def _launch_schedule(params, h, w, n_chunks):
     """Launches per kernel that run_flow_stage makes over n_chunks chunks,
-    derived from the ROI boxes: a boxed level runs K4 in place of K2."""
+    derived from the ROI boxes: a boxed level runs K4 in place of K2, each in
+    the instance of params.warp_precision."""
     from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
 
-    want = {"poly_exp": 0, "update_matrices": 0, "update_flow": 0, "update_matrices_tiles": 0}
+    want = dict.fromkeys(fc.LAUNCHES, 0)
+    suffix = "_bf16" if params.warp_precision == "bf16" else ""
     for k in range(params.num_levels(h, w) + 1):
         boxed = fb.box_tiles(params.roi_active_px[k], *params.level_size(h, w, k)) is not None
         it = params.iters_at(k)
         want["poly_exp"] += n_chunks
-        want["update_matrices_tiles" if boxed else "update_matrices"] += it * n_chunks
+        want[("update_matrices_tiles" if boxed else "update_matrices") + suffix] += it * n_chunks
         want["update_flow"] += it * n_chunks
     return want
 
@@ -731,7 +864,7 @@ def phase_pipeline(clip, device, smi, rows, full_feats):
     st = {k: round(v, 4) for k, v in timer.times.items()}
     print(f"stage seconds {st} ({timer.report()}); end to end {e2e:.4f} s from decode, "
           f"{n / e2e:.2f} ROI-frames/s on [{smi}]")
-    return flow_p
+    return flow_p, pc1
 
 
 def _skeleton(n):
@@ -774,7 +907,7 @@ def phase_cohort(device, smi, rows):
     from btcs_pnes_optical_flow_tpu_torch.dataio.video import ArraySource
     from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_full
     from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
-    from btcs_pnes_optical_flow_tpu_torch.parallel.mesh import make_mesh
+    from btcs_pnes_optical_flow_tpu_torch.parallel.mesh import Mesh, make_mesh
     from btcs_pnes_optical_flow_tpu_torch.parallel.runner import CohortItem, run_cohort
     from btcs_pnes_optical_flow_tpu_torch.utils.timing import StageTimer
 
@@ -788,7 +921,8 @@ def phase_cohort(device, smi, rows):
     print(f"clips rendered in {time.perf_counter() - t0:.1f} s ({sum(c.nbytes for c in clips) / 1e9:.2f} GB)")
     skel = _skeleton(n_f)
     cfg = PipelineConfig()
-    mesh = make_mesh()
+    mesh = make_mesh()  # every card present
+    print(f"mesh of every card present: {mesh}")
 
     def items(videos):
         return [CohortItem(f"v{v}", video, skel, [ROI]) for v, video in enumerate(videos)]
@@ -814,8 +948,8 @@ def phase_cohort(device, smi, rows):
     n_lev = cfg.flow.num_levels(H, W) + 1
     n_it = sum(cfg.flow.iters_at(k) for k in range(n_lev))
     n_chunks = n_v * -(-(n_f - 1) // chunk)
-    want = {"poly_exp": n_lev * n_chunks, "update_matrices": n_it * n_chunks,
-            "update_flow": n_it * n_chunks, "update_matrices_tiles": 0}
+    want = dict(dict.fromkeys(fc.LAUNCHES, 0), poly_exp=n_lev * n_chunks,
+                update_matrices=n_it * n_chunks, update_flow=n_it * n_chunks)
     print(f"launches of the batched run over {n_chunks} chunks: {launches} (expected the "
           f"full-frame schedule {want}: {n_lev}/{n_it}/{n_it} per chunk)")
     if launches != want:
@@ -832,7 +966,16 @@ def phase_cohort(device, smi, rows):
     per_video, _ = run("per video, ROI-dispatched, 2 flow workers", clips, flow_workers=2)
     d1 = _rows_equal(batched, resident, "host vs card clips")
     d2 = _rows_equal(batched, per_video, "batched vs per video")
-    print(f"rows equal across the three runs (largest relative difference {max(d1, d2):.3e}, "
+    runs = "three"
+    if torch.cuda.device_count() == 1:
+        # One card: the multi-device path over an explicit 4-shard layout.
+        layout = Mesh([device] * 4)
+        shards, _ = run(f"sharded over the 4-shard layout {layout}", clips, mesh=layout)
+        d2 = max(d2, _rows_equal(batched, shards, "one device vs 4 shards"))
+        if repr(shards) != repr(batched):
+            raise AssertionError("the 4-shard rows are not the one-device rows")
+        runs = "four"
+    print(f"rows equal across the {runs} runs (largest relative difference {max(d1, d2):.3e}, "
           f"bar 1e-6); every row status 0, error empty")
 
     flow, pc1, mets = run_full(ArraySource(clips[0], fps=30.0), skel, [ROI], cfg, chunk,
@@ -981,6 +1124,130 @@ def phase_pc1_engines(device, smi, full_feats):
           f"{corr:.9f} (bar > 0.9999), max |d| {float(np.abs(chunked[fin] - full[fin]).max()):.3e}")
     if not (same_nan and corr > 0.9999):
         raise AssertionError("streaming PC1 disagrees with the full signal")
+
+
+def phase_bench_config(clip, device, smi, rows, pc1_fp32):
+    """run_full on the bench clip under the JAX bench's flow config (the bf16
+    warp, schedule (3, 3, 2, 1)): launches against its ROI-box schedule, the
+    flow's EPE in the ROI against the fp32 flow of phase 4's config (and of
+    the same schedule), PC1 against phase 8's, ROI-frames/s."""
+    from bench import H, W
+    from btcs_pnes_optical_flow_tpu_torch.config import FarnebackParams, PipelineConfig
+    from btcs_pnes_optical_flow_tpu_torch.dataio.video import ArraySource
+    from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_full
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
+    from btcs_pnes_optical_flow_tpu_torch.utils.timing import StageTimer
+
+    n = clip.shape[0]
+    cfg = PipelineConfig(flow=dataclasses.replace(FarnebackParams(), **BENCH_FLOW))
+    print(f"== 12. the JAX bench's flow config: run_full on {n} frames of {H}x{W}, chunks of "
+          f"{CHUNK} pairs, {BENCH_FLOW}")
+    mask = roi_mask(H, W)
+    flow_p = fb.roi_dispatch_params(cfg.flow, H, W, mask)
+    want = _launch_schedule(flow_p, H, W, -(-(n - 1) // CHUNK))
+    skel = _skeleton(n)
+    run_full(ArraySource(clip[: CHUNK + 1], fps=30.0), skel, [ROI], cfg, CHUNK, device=device)
+    torch.cuda.synchronize()
+    fc.reset_launch_counts()
+    timer = StageTimer(device)
+    t0 = time.perf_counter()
+    flow, pc1, mets = run_full(ArraySource(clip, fps=30.0), skel, [ROI], cfg, CHUNK,
+                               device=device, timer=timer)
+    e2e = time.perf_counter() - t0
+    launches = dict(fc.LAUNCHES)
+    print(f"launches: {launches} (expected from the boxes {want})")
+    if (launches != want or not launches["update_matrices_bf16"]
+            or not launches["update_matrices_tiles_bf16"]):
+        raise AssertionError("the bench config's launches differ from its ROI-box schedule")
+    rows["update_matrices_bf16"]["launches"] = launches["update_matrices_bf16"]
+    rows["update_matrices_tiles_bf16"]["launches"] = launches["update_matrices_tiles_bf16"]
+
+    fin = np.isfinite(pc1_fp32[:, 0]) & np.isfinite(pc1[:, 0])
+    corr = float(np.corrcoef(pc1[fin, 0], pc1_fp32[fin, 0])[0, 1])
+    print(f"PC1 vs phase 8's (PipelineConfig(), fp32): corr {corr:.9f} over {int(fin.sum())} "
+          f"samples (bar {PC1_CORR})")
+    if not corr >= PC1_CORR or fin.sum() < n - 1:
+        raise AssertionError("the bench config's PC1 disagrees with phase 8's")
+
+    # Dense flow of phase 4's pairs in the ROI: the bench config against the
+    # fp32 flow of phase 4's config, and of the bench config in fp32.
+    inside = torch.as_tensor(mask, device=device)
+    fp32_same = dataclasses.replace(flow_p, warp_precision="fp32")
+    epe = {"phase 4's fp32 flow": [], "fp32, same schedule": []}
+    for s in range(0, n - 1, CHUNK):
+        frames = torch.as_tensor(clip[s : s + CHUNK + 1], device=device)
+        got = fb.farneback_flow_seq(frames, flow_p)
+        for key, ref_p in (("phase 4's fp32 flow", FarnebackParams()),
+                           ("fp32, same schedule", fp32_same)):
+            e = (got - fb.farneback_flow_seq(frames, ref_p)).norm(dim=-1)[:, inside]
+            epe[key].append(e.flatten().cpu())
+    for key, parts in epe.items():
+        e = torch.cat(parts).numpy()
+        mean = float(e.mean(dtype=np.float64))
+        print(f"flow EPE in the ROI vs {key}, {n - 1} pairs: mean {mean:.5f} px, p99 "
+              f"{float(np.percentile(e, 99)):.5f}, max {float(e.max()):.5f} (bar: mean < "
+              f"{BENCH_EPE_PX})")
+        if not mean < BENCH_EPE_PX:
+            raise AssertionError(f"the bench config's flow EPE vs {key} is past the bar")
+    st = {k: round(v, 4) for k, v in timer.times.items()}
+    print(f"stage seconds {st}; end to end {e2e:.4f} s from decode, {n / e2e:.2f} ROI-frames/s "
+          f"on [{smi}]; metric status {int(mets[0].status)}")
+
+
+def phase_sharded(clip, device, smi, rows):
+    """farneback_flow_sharded on 16 pairs at 480×640 over 4 shards and at
+    1080×1920 over 3, on the cards present or, with fewer, an explicit
+    layout on cuda:0: launches of the 480×640 run, max |Δ| against the
+    unsharded flow, times."""
+    from bench import render_clip
+    from btcs_pnes_optical_flow_tpu_torch.config import FarnebackParams
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
+    from btcs_pnes_optical_flow_tpu_torch.parallel.mesh import Mesh
+    from btcs_pnes_optical_flow_tpu_torch.parallel.spatial import farneback_flow_sharded
+
+    p = FarnebackParams()
+    cards = torch.cuda.device_count()
+    print(f"== 13. height-sharded flow: {SHARD_PAIRS} pairs, warp_halo {WARP_HALO}, {p}")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for h, w, n_shards in SHARD_CASES:
+        frames = clip[: SHARD_PAIRS + 1] if (h, w) == clip.shape[1:] else render_clip(
+            SHARD_PAIRS + 1, h, w, seed=5)
+        if cards >= n_shards:
+            devs, layout = [torch.device("cuda", i) for i in range(n_shards)], "cards"
+        else:
+            devs, layout = [device] * n_shards, f"explicit {n_shards}-fold cuda:0 layout"
+        mesh = Mesh(devs, ("spatial",))
+        prev = torch.as_tensor(frames[:-1], device=device)
+        curr = torch.as_tensor(frames[1:], device=device)
+        farneback_flow_sharded(prev, curr, p, mesh)  # warm-up
+        fc.reset_launch_counts()
+        out, t_sh = timed(lambda: farneback_flow_sharded(prev, curr, p, mesh))
+        launches = dict(fc.LAUNCHES)
+        whole, t_whole = timed(lambda: fb.farneback_flow(prev, curr, p))
+        d = float((out - whole).abs().max())
+        n_lev = p.num_levels(h, w) + 1
+        n_it = sum(p.iters_at(k) for k in range(n_lev))
+        want = dict(dict.fromkeys(fc.LAUNCHES, 0), poly_exp=2 * n_shards * n_lev,
+                    update_matrices_rows=n_shards * n_it, update_flow=n_shards * n_it)
+        print(f"{h}x{w} over {n_shards} shards ({layout}: {list(mesh)}): launches {launches} "
+              f"(expected {want}); max |d| vs the unsharded flow {d:.3e} px (bar {SHARD_TOL_PX}); "
+              f"sharded {t_sh:.4f} s, unsharded {t_whole:.4f} s (synchronised) on [{smi}]")
+        if launches != want:
+            raise AssertionError("the sharded flow's launches differ from its schedule")
+        if not (d <= SHARD_TOL_PX and torch.isfinite(out).all()):
+            raise AssertionError("the sharded flow disagrees with the unsharded flow")
+        if (h, w) == SHARD_CASES[0][:2]:
+            rows["update_matrices_rows"]["launches"] = launches["update_matrices_rows"]
+        del out, whole, prev, curr
 
 
 def phase_profile(title, run, host_top=0):
@@ -1242,13 +1509,15 @@ def main():
               f"{1e3 * tv_wall:.3f} ms on the card (fenced) in phase 7's unprofiled call: "
               f"{100 * tv_busy / (1e3 * tv_wall):.1f}% on [{smi}]")
     rows.update(tv_rows)
-    flow_p = phase_pipeline(clip, device, smi, rows, full_feats)
+    flow_p, pc1_fp32 = phase_pipeline(clip, device, smi, rows, full_feats)
     phase_profile("== 8b. device time by kernel, one ROI-dispatched chunk",
                   lambda: roi_body_flow_seq(chunk, exd, eyd, masks, flow_p))
     del chunk, exd, eyd, masks
     for number, phase, args in ((9, phase_cohort, (device, smi, rows)),
                                 (10, phase_compat, (clip, device, smi)),
-                                (11, phase_pc1_engines, (device, smi, full_feats))):
+                                (11, phase_pc1_engines, (device, smi, full_feats)),
+                                (12, phase_bench_config, (clip, device, smi, rows, pc1_fp32)),
+                                (13, phase_sharded, (clip, device, smi, rows))):
         t0 = time.perf_counter()
         phase(*args)
         print(f"phase {number}: {time.perf_counter() - t0:.1f} s")

@@ -111,8 +111,8 @@ def test_flow_seq_kernels_match_plain(card):
     kern = fb.farneback_flow_seq(frames, p)
     levels = p.num_levels(140, 180) + 1
     iters = sum(p.iters_at(k) for k in range(levels))
-    assert fc.LAUNCHES == {"poly_exp": levels, "update_matrices": iters, "update_flow": iters,
-                           "update_matrices_tiles": 0}
+    assert fc.LAUNCHES == dict(dict.fromkeys(fc.LAUNCHES, 0), poly_exp=levels,
+                               update_matrices=iters, update_flow=iters)
     plain = fb.farneback_flow_seq(frames, p, kernels=False)
     assert float((kern - plain).abs().max()) <= 1e-3  # the path's px bar
 
@@ -390,18 +390,18 @@ def test_run_cohort_paths_agree_on_the_card(card, tmp_path):
     from btcs_pnes_optical_flow_tpu_torch.parallel.mesh import make_mesh
     from btcs_pnes_optical_flow_tpu_torch.parallel.runner import run_cohort
 
-    mesh = make_mesh()
+    mesh = make_mesh(1)
     assert mesh == (torch.device("cuda", 0),)
-    with pytest.raises(NotImplementedError):
-        make_mesh(2)
+    with pytest.raises(RuntimeError, match="CUDA"):  # more cards than the machine has
+        make_mesh(torch.cuda.device_count() + 1)
     cfg = PipelineConfig(metrics=MetricParams(window_sec=2.0))
     fc.reset_launch_counts()
     batched = run_cohort(_cohort_items(3, 81), cfg, 32, mesh=mesh, device=card)
     n_lev = cfg.flow.num_levels(64, 96) + 1
     n_it = sum(cfg.flow.iters_at(k) for k in range(n_lev))
     chunks = 3 * 3  # 3 videos of 80 pairs in chunks of 32
-    assert fc.LAUNCHES == {"poly_exp": n_lev * chunks, "update_matrices": n_it * chunks,
-                           "update_flow": n_it * chunks, "update_matrices_tiles": 0}
+    assert fc.LAUNCHES == dict(dict.fromkeys(fc.LAUNCHES, 0), poly_exp=n_lev * chunks,
+                               update_matrices=n_it * chunks, update_flow=n_it * chunks)
     resident = run_cohort(_cohort_items(3, 81, lambda c: torch.as_tensor(c, device=card)), cfg,
                           32, mesh=mesh, device=card)
     per_video = run_cohort(_cohort_items(3, 81), cfg, 32, flow_workers=2, device=card,
@@ -572,3 +572,102 @@ def test_tvl1_wrappers_reject_bad_inputs(card):
         tc.pd_chain(*planes[:5], planes[5].cpu(), 4, 0.25, 0.3, 0.3)
     with pytest.raises(ValueError):  # no compiled instance of that depth
         tc.pd_chain(*planes, 4, 0.25, 0.3, 0.3, depth=11)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bf16_instances_of_k2_and_k4(card, shape):
+    """K2's and K4's bf16 instances (warp_precision="bf16") against their
+    plain versions; K4 over every tile equals K2 bit for bit (one device
+    function)."""
+    b, h, w = shape
+    p0 = fb.poly_exp_cf_plain(_img(shape, 31).to(card), 5, 1.2)
+    p1 = fb.poly_exp_cf_plain(_img(shape, 32).to(card), 5, 1.2)
+    rng = np.random.default_rng(33)
+    flow = rng.normal(size=(b, 2, h, w)).astype(np.float32) * 4
+    flow[:, 0, ::5, ::3] = 1e4
+    flow = torch.as_tensor(flow).to(card)
+    fc.reset_launch_counts()
+    kern = fc.update_matrices_cf(p0, p1, flow, "bf16")
+    plain = fb.update_matrices_cf_plain(p0, p1, flow, "bf16")
+    assert torch.isfinite(kern).all() and _rel(kern, plain) <= 1e-5  # K2's bar
+    assert not torch.equal(kern, fc.update_matrices_cf(p0, p1, flow))  # bf16 rounds
+    sel = torch.as_tensor(_tile_ids("all", b, h, w).astype(np.int32)).to(card)
+    tiles = fc.update_matrices_tiles_cf(p0, p1, flow, sel, torch.zeros_like(kern), fb.TILE, "bf16")
+    assert torch.equal(tiles, kern)
+    assert (fc.LAUNCHES["update_matrices_bf16"], fc.LAUNCHES["update_matrices_tiles_bf16"],
+            fc.LAUNCHES["update_matrices"], fc.LAUNCHES["update_matrices_tiles"]) == (1, 1, 1, 0)
+
+
+@pytest.mark.parametrize("shape", [(2, 45, 67), (1, 33, 250), (2, 100, 256)])
+@pytest.mark.parametrize("n_shards,halo", [(1, 0), (3, 16), (5, 4)])
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_update_matrices_rows_kernel(card, shape, n_shards, halo, precision):
+    """K2's row-offset instance on the row blocks of an image (ragged last
+    block when H is not a multiple) against its plain version; one block
+    without halo is K2 bit for bit."""
+    b, h, w = shape
+    p0 = fb.poly_exp_cf_plain(_img(shape, 34).to(card), 5, 1.2)
+    p1 = fb.poly_exp_cf_plain(_img(shape, 35).to(card), 5, 1.2)
+    flow = torch.as_tensor(
+        np.random.default_rng(36).normal(size=(b, 2, h, w)).astype(np.float32) * 6).to(card)
+    step = -(-h // n_shards)
+    for off in range(0, h, step):
+        rows = min(step, h - off)
+        k = min(halo, off, h - off - rows)  # the band the image has on both sides
+        r1 = p1[:, :, off - k:off + rows + k].contiguous()
+        args = (p0[:, :, off:off + rows].contiguous(), r1,
+                flow[:, :, off:off + rows].contiguous(), off, h, precision)
+        kern = fc.update_matrices_rows_cf(*args)
+        plain = fb.update_matrices_rows_cf_plain(*args)
+        assert torch.isfinite(kern).all() and _rel(kern, plain) <= 1e-5  # K2's bar
+    if n_shards == 1:
+        assert torch.equal(kern, fc.update_matrices_cf(p0, p1, flow, precision))
+
+
+@pytest.mark.parametrize("n_shards,h,w,levels", [(4, 128, 96, 1), (4, 192, 256, 3),
+                                                 (3, 120, 160, 3)])
+def test_sharded_flow_on_the_card(card, n_shards, h, w, levels):
+    """farneback_flow_sharded over a layout of shards on the card against the
+    unsharded flow on the card (≤ 1e-4 px) and against itself on the CPU."""
+    from btcs_pnes_optical_flow_tpu_torch.parallel.mesh import Mesh
+    from btcs_pnes_optical_flow_tpu_torch.parallel.spatial import farneback_flow_sharded
+
+    yy, xx = np.mgrid[0:h + 8, 0:w + 8]
+    base = (np.sin(xx / 7) * np.cos(yy / 9) + 0.5 * np.sin(xx / 3 + yy / 5)) * 60 + 128
+    base += np.random.default_rng(37).normal(0, 1, base.shape)
+    prev = np.stack([base[:h, :w], base[3:h + 3, 2:w + 2]]).astype(np.uint8)
+    curr = np.stack([base[2:h + 2, 1:w + 1], base[4:h + 4, 5:w + 5]]).astype(np.uint8)
+    p = FarnebackParams(levels=levels)
+    fc.reset_launch_counts()
+    out = farneback_flow_sharded(prev, curr, p, Mesh([card] * n_shards, ("spatial",)))
+    assert fc.LAUNCHES["update_matrices_rows"] > 0 and fc.LAUNCHES["poly_exp"] > 0
+    ref = fb.farneback_flow(torch.as_tensor(prev, device=card), torch.as_tensor(curr, device=card),
+                            p)
+    assert out.device == card and float((out - ref).abs().max()) <= 1e-4
+    cpu = farneback_flow_sharded(prev, curr, p, Mesh(["cpu"] * n_shards, ("spatial",)))
+    assert float((out.cpu() - cpu).abs().max()) <= 1e-3  # the path's px bar
+
+
+def test_cohort_over_a_mesh_of_shards_on_the_card(card):
+    """run_cohort and cohort_step over four shards on the card equal the
+    one-device run."""
+    from btcs_pnes_optical_flow_tpu_torch.config import MetricParams, PCAParams, PipelineConfig
+    from btcs_pnes_optical_flow_tpu_torch.parallel import cohort
+    from btcs_pnes_optical_flow_tpu_torch.parallel.mesh import Mesh
+    from btcs_pnes_optical_flow_tpu_torch.parallel.runner import run_cohort
+
+    cfg = PipelineConfig(metrics=MetricParams(window_sec=2.0))
+    one = run_cohort(_cohort_items(5, 49), cfg, 16, mesh=Mesh([card]), device=card)
+    four = run_cohort(_cohort_items(5, 49), cfg, 16, mesh=Mesh([card] * 4), device=card)
+    assert repr(one) == repr(four)
+    clips = np.stack([it.video[:4] for it in _cohort_items(6, 4)])
+    prev, curr = clips[:, :-1], clips[:, 1:]
+    ex = np.tile(np.array([1.0, 0.0], np.float32), (6, 3, 1))
+    masks = np.ones((1, 64, 96), bool)
+    live = np.ones((6, 3), bool)
+    args = (prev, curr, ex, ex[..., ::-1].copy(), masks, live, FarnebackParams(levels=1),
+            PCAParams(win_sec=0.1, step_sec=0.05, max_finite_runs=4))
+    a = cohort.cohort_step(*args, device=card)
+    m = cohort.cohort_step(*args, mesh=Mesh([card] * 4))
+    for x, y in zip(a, m):
+        torch.testing.assert_close(y, x, rtol=1e-6, atol=1e-7, equal_nan=True)

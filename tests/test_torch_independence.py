@@ -39,6 +39,9 @@ def test_no_module_of_the_port_imports_the_jax_package():
     assert len(files) > 20
     scanned = {f.relative_to(REPO / "btcs_pnes_optical_flow_tpu_torch").parts[0] for f in files[:-1]}
     assert {"compat", "parallel", "dataio", "models", "ops"} <= scanned
+    rel = {f.relative_to(REPO).as_posix() for f in files}
+    assert {f"btcs_pnes_optical_flow_tpu_torch/parallel/{m}.py"
+            for m in ("mesh", "cohort", "runner", "halo", "spatial")} <= rel
     offenders = {str(f.relative_to(REPO)): sorted(n & {JAX_PACKAGE, "jax", "jaxlib"})
                  for f in files for n in [_imported_top_names(f)]
                  if n & {JAX_PACKAGE, "jax", "jaxlib"}}

@@ -96,8 +96,9 @@ def test_port_never_imports_jax(tmp_path):
     a subprocess that cannot import them runs the flow + PC1 slice, TV-L1,
     the pipeline's run_full with its three CSVs (read back with the csv
     module), the flow stage with a checkpoint directory, then resumed from
-    it, the three reference-compatible CLIs, and run_cohort on its batched
-    and per-video paths with its CSV."""
+    it, the three reference-compatible CLIs, run_cohort on its batched
+    and per-video paths with its CSV and over a two-shard CPU mesh, and
+    farneback_flow_sharded over four CPU shards."""
     code = (
         "import csv, math, os, sys\n"
         "BLOCKED = ('btcs_pnes_optical_flow_tpu', 'jax', 'jaxlib', 'pandas', 'cv2')\n"
@@ -193,6 +194,15 @@ def test_port_never_imports_jax(tmp_path):
         "assert len(batched) == 2 and [r['status'] for r in batched] == [0, 0]\n"
         "assert repr(batched) == repr(per_video)\n"
         "assert rows(coh)[0][:2] == ['video', 'roi'] and len(rows(coh)) == 3\n"
+        "from btcs_pnes_optical_flow_tpu_torch.ops.farneback import farneback_flow\n"
+        "from btcs_pnes_optical_flow_tpu_torch.parallel.mesh import Mesh\n"
+        "from btcs_pnes_optical_flow_tpu_torch.parallel.spatial import farneback_flow_sharded\n"
+        "sh = farneback_flow_sharded(fr[:2], fr[1:3], mesh=Mesh(['cpu'] * 4, ('spatial',)))\n"
+        "whole = farneback_flow(torch.as_tensor(fr[:2]), torch.as_tensor(fr[1:3]))\n"
+        "assert sh.shape == (2, 40, 48, 2) and float((sh - whole).abs().max()) <= 1e-4\n"
+        "sharded = run_cohort([CohortItem(n, clip, skel, [roi]) for n in 'abc'], chunk_pairs=32,\n"
+        "                     mesh=Mesh([torch.device('cpu')] * 2), device='cpu')\n"
+        "assert repr(sharded[:2]) == repr(batched) and sharded[2]['status'] == 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -206,8 +216,10 @@ def test_port_never_imports_jax(tmp_path):
 
 def test_check_supported():
     p = from_fields(FarnebackParams())
+    bf16 = dataclasses.replace(p, warp_precision="bf16")
+    assert check_supported(bf16) is bf16
     with pytest.raises(ValueError):
-        check_supported(dataclasses.replace(p, warp_precision="bf16"))
+        check_supported(dataclasses.replace(p, warp_precision="fp16"))
     # TPU-only warp knobs, the ROI box and the iteration schedule are accepted.
     q = dataclasses.replace(p, warp_s_cap=0, warp_dual_frac=0.0, warp_layout="transposed",
                             warp_coarse_reach=(4, 8, 8), roi_active_px=((0, 8, 0, 8),),
@@ -217,4 +229,6 @@ def test_check_supported():
     from btcs_pnes_optical_flow_tpu_torch.ops import farneback as tfb
 
     with pytest.raises(ValueError):
-        tfb.farneback_flow_seq(frames, dataclasses.replace(p, warp_precision="bf16"))
+        tfb.farneback_flow_seq(frames, dataclasses.replace(p, warp_precision="fp16"))
+    flow = tfb.farneback_flow_seq(frames, bf16)
+    assert flow.shape == (1, 40, 48, 2) and torch.isfinite(flow).all()
