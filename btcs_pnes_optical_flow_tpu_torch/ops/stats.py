@@ -13,7 +13,9 @@ structure included):
   but never defines (optical_PC1.py:263-270).
 
 Every function takes a validity mask; invalid slots are ignored as if
-the arrays had been compacted.
+the arrays had been compacted.  The samples lie along the last axis: one
+series ``(N,)`` gives scalars, K of them ``(K, N)`` give ``(K,)`` (the JAX
+package's ``vmap``), and no function reads a value back to the host.
 """
 
 from __future__ import annotations
@@ -34,18 +36,18 @@ def _full(like: torch.Tensor, value: float) -> torch.Tensor:
 
 def masked_median(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Median over valid entries (numpy: mean of the two middles)."""
-    xs = torch.sort(torch.where(valid, x, _full(x, float("inf")))).values
-    c = valid.sum()
-    lo = xs[torch.clamp((c - 1) // 2, min=0)]
-    hi = xs[torch.clamp(c // 2, min=0)]
-    return torch.where(c > 0, 0.5 * (lo + hi), _full(x, float("nan")))
+    xs = torch.sort(torch.where(valid, x, _full(x, float("inf"))), dim=-1).values
+    c = valid.sum(-1, keepdim=True)
+    lo = xs.gather(-1, torch.clamp((c - 1) // 2, min=0))[..., 0]
+    hi = xs.gather(-1, torch.clamp(c // 2, min=0))[..., 0]
+    return torch.where(c[..., 0] > 0, 0.5 * (lo + hi), _full(x, float("nan")))
 
 
 def estimate_fs_masked(time: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """Sampling rate of a compacted time vector, 1 / median(diff), over
     consecutive live samples (``m`` marks the live prefix)."""
-    d = time[1:] - time[:-1]
-    return 1.0 / masked_median(d, m[1:] & m[:-1])
+    d = time[..., 1:] - time[..., :-1]
+    return 1.0 / masked_median(d, m[..., 1:] & m[..., :-1])
 
 
 def safe_auc_masked(amp: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
@@ -53,12 +55,12 @@ def safe_auc_masked(amp: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
     when fewer than 2 finite samples exist."""
     zero = _full(amp, 0.0)
     fin = torch.isfinite(amp) & torch.isfinite(time)
-    pair = fin[1:] & fin[:-1]
-    a0 = torch.where(fin[:-1], amp[:-1], zero)
-    a1 = torch.where(fin[1:], amp[1:], zero)
-    dt = torch.where(pair, time[1:] - time[:-1], zero)
-    total = torch.where(pair, 0.5 * (a0 + a1) * dt, zero).sum()
-    return torch.where(fin.sum() >= 2, total, _full(amp, float("nan")))
+    pair = fin[..., 1:] & fin[..., :-1]
+    a0 = torch.where(fin[..., :-1], amp[..., :-1], zero)
+    a1 = torch.where(fin[..., 1:], amp[..., 1:], zero)
+    dt = torch.where(pair, time[..., 1:] - time[..., :-1], zero)
+    total = torch.where(pair, 0.5 * (a0 + a1) * dt, zero).sum(-1)
+    return torch.where(fin.sum(-1) >= 2, total, _full(amp, float("nan")))
 
 
 def linregress_masked(x: torch.Tensor, y: torch.Tensor, m: torch.Tensor):
@@ -67,15 +69,15 @@ def linregress_masked(x: torch.Tensor, y: torch.Tensor, m: torch.Tensor):
     x-variance is 0, all NaN with fewer than 2 samples."""
     zero = _full(x, 0.0)
     nan = _full(x, float("nan"))
-    n = m.to(x.dtype).sum()
+    n = m.to(x.dtype).sum(-1)
     nsafe = torch.clamp(n, min=1.0)
-    xm = torch.where(m, x, zero).sum() / nsafe
-    ym = torch.where(m, y, zero).sum() / nsafe
-    dx = torch.where(m, x - xm, zero)
-    dy = torch.where(m, y - ym, zero)
-    ssxm = (dx * dx).sum()
-    ssym = (dy * dy).sum()
-    ssxym = (dx * dy).sum()
+    xm = torch.where(m, x, zero).sum(-1) / nsafe
+    ym = torch.where(m, y, zero).sum(-1) / nsafe
+    dx = torch.where(m, x - xm.unsqueeze(-1), zero)
+    dy = torch.where(m, y - ym.unsqueeze(-1), zero)
+    ssxm = (dx * dx).sum(-1)
+    ssym = (dy * dy).sum(-1)
+    ssxym = (dx * dy).sum(-1)
     slope = torch.where(ssxm > 0, ssxym / torch.clamp(ssxm, min=1e-30), nan)
     intercept = ym - slope * xm
     denom = torch.sqrt(torch.clamp(ssxm * ssym, min=1e-30))
@@ -91,38 +93,46 @@ def exp_decay_regression_masked(time: torch.Tensor, amp: torch.Tensor, m: torch.
     ok = m & torch.isfinite(amp) & (amp > 0) & torch.isfinite(time)
     la = torch.log(torch.where(ok, amp, _full(amp, 1.0)))
     slope, _, r = linregress_masked(time, la, ok)
-    bad = ok.sum() < 2
+    bad = ok.sum(-1) < 2
     nan = _full(amp, float("nan"))
     return torch.where(bad, nan, slope), torch.where(bad, nan, r)
 
 
-def _kendall_p_exact_two_sided(n: int, c: int, device) -> torch.Tensor:
+def _kendall_p_exact_two_sided(n: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Exact two-sided p of Kendall's statistic for n samples and the
-    folded discordant count c = min(dis, tot-dis), in float32.
+    folded discordant count c = min(dis, tot-dis) (int64 tensors of one
+    shape), in float32.
 
     The null distribution of the discordant count is the inversion-number
     distribution of random permutations, built by the recurrence
-    f_j = windowed-cumsum(f_{j-1}) (scipy's ``_kendall_p_exact``) up to
-    n = 33; past it scipy's 'auto' rule takes the exact method only for
-    c <= 1, which has a closed form (count(k<=0) = 1, count(k<=1) = n).
+    f_j = windowed-cumsum(f_{j-1}) (scipy's ``_kendall_p_exact``) for
+    j = 3…33, each step kept only where j <= n (the JAX package's
+    ``fori_loop``); past n = 33 scipy's 'auto' rule takes the exact method
+    only for c <= 1, which has a closed form (count(k<=0) = 1,
+    count(k<=1) = n).
     """
     kmax = _EXACT_C_MAX
-    idx = torch.arange(kmax, device=device)
-    zero = torch.zeros((), dtype=torch.float32, device=device)
-    new = (idx < 2).to(torch.float32)
-    cm = min(c, kmax - 1)
-    for j in range(3, min(n, _EXACT_N_MAX) + 1):
-        g = torch.cumsum(new, 0)
-        sh = torch.where(idx - j >= 0, g[torch.clamp(idx - j, min=0)], zero)
-        new = g - torch.where((idx >= j) & (j <= cm), sh, zero)
-    total = torch.where(idx <= cm, new, zero).sum()
-    nf = torch.tensor(float(n), dtype=torch.float32, device=device)
+    idx = torch.arange(kmax, device=n.device)
+    js = torch.arange(3, _EXACT_N_MAX + 1, device=n.device)[:, None]
+    cm = torch.clamp(c, max=kmax - 1).unsqueeze(-1)
+    # Step j subtracts the cumsum shifted by j where j <= idx and j <= c
+    # (g - 0 elsewhere, which is g), and is kept where j <= n.  The masks
+    # and gather indices of all steps are formed before the loop.
+    shifts = torch.clamp(idx - js, min=0).unbind(0)
+    subs = ((idx >= js) & (js <= cm.unsqueeze(-1))).unbind(-2)
+    keeps = (js[:, 0] <= n.unsqueeze(-1)).unsqueeze(-1).unbind(-2)
+    new = (idx < 2).to(torch.float32).expand(*n.shape, kmax)
+    for shift, sub, keep in zip(shifts, subs, keeps):
+        g = torch.cumsum(new, -1)
+        new = torch.where(keep, torch.where(sub, g - g[..., shift], g), new)
+    total = torch.where(idx <= cm, new, torch.zeros((), device=n.device)).sum(-1)
+    nf = n.to(torch.float32)
     log_nfact = torch.lgamma(nf + 1.0)
     prob = 2.0 * total * torch.exp(-log_nfact)
-    if n > _EXACT_N_MAX:
-        prob = 2.0 * torch.exp(-(log_nfact if c <= 0 else torch.lgamma(nf)))
-    if 4 * c == n * (n - 1):  # c at the distribution's midpoint
-        prob = torch.ones_like(prob)
+    prob_big = torch.where(c <= 0, 2.0 * torch.exp(-log_nfact), 2.0 * torch.exp(-torch.lgamma(nf)))
+    prob = torch.where(n > _EXACT_N_MAX, prob_big, prob)
+    # c at the distribution's midpoint: the two-sided p is 1.
+    prob = torch.where(4 * c == n * (n - 1), torch.ones_like(prob), prob)
     return torch.clamp(prob, 0.0, 1.0)
 
 
@@ -132,33 +142,34 @@ def kendalltau_masked(x: torch.Tensor, y: torch.Tensor, m: torch.Tensor):
 
     Pairwise O(n²) form (n is the number of inter-peak intervals):
     concordant minus discordant is Σ_{i<j} sgn(Δx)·sgn(Δy); the tie
-    corrections come from each element's tied-group size.  Choosing the
-    exact or the asymptotic p reads two scalars on the host.
+    corrections come from each element's tied-group size.  The exact and
+    the asymptotic p are both computed and chosen per series, as
+    ``lax.cond`` under ``vmap`` does in the JAX package.
     """
     dt = x.dtype
-    dev = x.device
     zero = _full(x, 0.0)
     one = _full(x, 1.0)
-    n = m.sum()
-    mm = m[:, None] & m[None, :]
-    pair = mm & torch.triu(torch.ones_like(mm), diagonal=1)
-    dxs = torch.sign(x[None, :] - x[:, None])
-    dys = torch.sign(y[None, :] - y[:, None])
-    cmd = torch.where(pair, dxs * dys, zero).sum()
+    n = m.sum(-1)
+    mm = m[..., :, None] & m[..., None, :]
+    pair = mm & torch.triu(torch.ones(mm.shape[-2:], dtype=torch.bool, device=x.device),
+                           diagonal=1)
+    dxs = torch.sign(x[..., None, :] - x[..., :, None])
+    dys = torch.sign(y[..., None, :] - y[..., :, None])
+    cmd = torch.where(pair, dxs * dys, zero).sum((-2, -1))
 
-    ex = x[None, :] == x[:, None]
-    ey = y[None, :] == y[:, None]
-    xtie = torch.where(pair & ex, one, zero).sum()
-    ytie = torch.where(pair & ey, one, zero).sum()
-    ntie = torch.where(pair & ex & ey, one, zero).sum()
+    ex = x[..., None, :] == x[..., :, None]
+    ey = y[..., None, :] == y[..., :, None]
+    xtie = torch.where(pair & ex, one, zero).sum((-2, -1))
+    ytie = torch.where(pair & ey, one, zero).sum((-2, -1))
+    ntie = torch.where(pair & ex & ey, one, zero).sum((-2, -1))
 
-    cx = torch.where(mm & ex, one, zero).sum(1)  # tied-group size per i
-    cy = torch.where(mm & ey, one, zero).sum(1)
+    cx = torch.where(mm & ex, one, zero).sum(-1)  # tied-group size per i
+    cy = torch.where(mm & ey, one, zero).sum(-1)
     mv = m.to(dt)
-    x0 = (mv * (cx - 1.0) * (cx - 2.0)).sum()  # Σ t(t-1)(t-2)
-    y0 = (mv * (cy - 1.0) * (cy - 2.0)).sum()
-    x1 = (mv * (cx - 1.0) * (2.0 * cx + 5.0)).sum()  # Σ t(t-1)(2t+5)
-    y1 = (mv * (cy - 1.0) * (2.0 * cy + 5.0)).sum()
+    x0 = (mv * (cx - 1.0) * (cx - 2.0)).sum(-1)  # Σ t(t-1)(t-2)
+    y0 = (mv * (cy - 1.0) * (cy - 2.0)).sum(-1)
+    x1 = (mv * (cx - 1.0) * (2.0 * cx + 5.0)).sum(-1)  # Σ t(t-1)(2t+5)
+    y1 = (mv * (cy - 1.0) * (2.0 * cy + 5.0)).sum(-1)
 
     nf = n.to(dt)
     tot = nf * (nf - 1.0) / 2.0
@@ -168,17 +179,15 @@ def kendalltau_masked(x: torch.Tensor, y: torch.Tensor, m: torch.Tensor):
     tau = torch.clamp(cmd / denom, -1.0, 1.0)
 
     cfold = torch.minimum(dis, tot - dis)
-    no_ties = bool((xtie == 0) & (ytie == 0))
-    n_int = int(n)
-    if no_ties and (n_int <= _EXACT_N_MAX or float(cfold) <= 1.0):
-        p = _kendall_p_exact_two_sided(n_int, int(cfold), dev).to(dt)
-    else:
-        mfac = nf * (nf - 1.0)
-        var = ((mfac * (2.0 * nf + 5.0) - x1 - y1) / 18.0
-               + (2.0 * xtie * ytie) / torch.clamp(mfac, min=1.0)
-               + x0 * y0 / torch.clamp(9.0 * mfac * (nf - 2.0), min=1.0))
-        z = cmd / torch.sqrt(torch.clamp(var, min=1e-30))
-        p = torch.special.erfc(torch.abs(z) / math.sqrt(2.0))
+    use_exact = (xtie == 0) & (ytie == 0) & ((n <= _EXACT_N_MAX) | (cfold <= 1.0))
+    p_exact = _kendall_p_exact_two_sided(n, cfold.to(torch.int64)).to(dt)
+    mfac = nf * (nf - 1.0)
+    var = ((mfac * (2.0 * nf + 5.0) - x1 - y1) / 18.0
+           + (2.0 * xtie * ytie) / torch.clamp(mfac, min=1.0)
+           + x0 * y0 / torch.clamp(9.0 * mfac * (nf - 2.0), min=1.0))
+    z = cmd / torch.sqrt(torch.clamp(var, min=1e-30))
+    p_asym = torch.special.erfc(torch.abs(z) / math.sqrt(2.0))
+    p = torch.where(use_exact, p_exact, p_asym)
 
     nan = _full(x, float("nan"))
     degenerate = (n < 2) | (xtie >= tot) | (ytie >= tot)

@@ -1,8 +1,8 @@
 """Drive the PyTorch port's paths once on one CUDA card: flow + PC1
 (Farnebäck), the TV-L1 flow engine, the production pipeline run_full
 (decode → ROI-dispatched flow → PC1 → metrics), the cohort runner, the
-reference-compatible CLIs, streaming PC1, the JAX bench's bf16 flow config
-and the height-sharded flow.
+reference-compatible CLIs, streaming PC1, the JAX bench's bf16 flow config,
+the height-sharded flow and the batched metric head.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -71,11 +71,16 @@ Phases (any failed check raises, so the exit code is non-zero):
 13. sharded — farneback_flow_sharded on 16 pairs at 480×640 over 4 shards
              and at 1080×1920 over 3, on the cards present or an explicit
              cuda:0 layout when there are fewer: launches (K2's row-offset
-             instance), max |Δ| against the unsharded flow (≤ 1e-4 px), times.
+             instance), max |Δ| against the unsharded flow (≤ 1e-4 px), times;
+14. metric head — pc1_metrics_batch against K calls of pc1_metrics on the
+             card over phase 9's stage C input (32 rows) and over 128
+             synthetic 60-s rows (half 30 fps, half 25 fps: two window
+             shapes, 20-row blocks): status and Peak_n equal, the floats
+             within rel 1e-6, the blocks, and the median seconds of both.
 Phase 3 and 3b also hold K2's and K4's bf16 instances and K2's row-offset
 instance against their plain versions; phase 9 runs run_cohort over a mesh
 of every card present and, with one card, over a 4-shard cuda:0 layout
-(rows equal to the batched run's).  Phases 9–13 print their seconds.
+(rows equal to the batched run's).  Phases 9–14 print their seconds.
 
 Every kernel row of the kernels JSON carries its bound: the larger of the
 bytes it must move (each input read once, each output written once) over
@@ -161,6 +166,9 @@ ROI = np.array([[140.0, 90.0], [520.0, 110.0], [500.0, 400.0], [120.0, 380.0]])
 THETA = 0.3
 FEATURE_TOL = 1e-6  # px/frame: ROI-dispatched vs full-frame ROI features (0.0 expected)
 METRIC_RTOL = 1e-4  # metric head, card vs CPU on the same PC1
+# Phase 14: the batched metric head against its row loop on the card.
+HEAD_ROWS, HEAD_SEC, HEAD_ROUNDS = 128, 60, 2
+HEAD_RTOL = 1e-6
 # TV-L1: (name, K, TPU kernel it replaces, tolerance, and why).
 TV_KERNELS = (
     ("warp_sample", "K5", f"{PALLAS}:1359", 1e-5,
@@ -905,6 +913,7 @@ def phase_cohort(device, smi, rows):
     from bench import H, W, render_clip
     from btcs_pnes_optical_flow_tpu_torch.config import PipelineConfig
     from btcs_pnes_optical_flow_tpu_torch.dataio.video import ArraySource
+    from btcs_pnes_optical_flow_tpu_torch.models import metrics as metrics_model
     from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_full
     from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
     from btcs_pnes_optical_flow_tpu_torch.parallel.mesh import Mesh, make_mesh
@@ -943,7 +952,15 @@ def phase_cohort(device, smi, rows):
 
     run_cohort(items(clips[:2]), cfg, chunk, mesh=mesh, device=device)  # warm-up
     fc.reset_launch_counts()
-    batched, _ = run("batched, host clips", clips, mesh=mesh)
+    # Stage C's input (one length group of 32 PC1 rows) is kept for phase 14.
+    head_in = []
+    batch_head = metrics_model.pc1_metrics_batch
+    metrics_model.pc1_metrics_batch = lambda t, p, *a, **kw: (
+        head_in.append((t, p)) or batch_head(t, p, *a, **kw))
+    try:
+        batched, _ = run("batched, host clips", clips, mesh=mesh)
+    finally:
+        metrics_model.pc1_metrics_batch = batch_head
     launches = dict(fc.LAUNCHES)
     n_lev = cfg.flow.num_levels(H, W) + 1
     n_it = sum(cfg.flow.iters_at(k) for k in range(n_lev))
@@ -989,6 +1006,9 @@ def phase_cohort(device, smi, rows):
     _rows_equal([batched[0]], [want_row], "cohort row v0 vs run_full")
     print(f"row v0 equals run_full on v0 with {chunk}-pair chunks: "
           + ", ".join(f"{k} {batched[0][k]:.6g}" for k in single))
+    if len(head_in) != 1 or len(head_in[0][0]) != n_v:
+        raise AssertionError(f"stage C ran {len(head_in)} batched calls, expected one of {n_v} rows")
+    return head_in[0]
 
 
 def phase_compat(clip, device, smi):
@@ -1248,6 +1268,98 @@ def phase_sharded(clip, device, smi, rows):
         if (h, w) == SHARD_CASES[0][:2]:
             rows["update_matrices_rows"]["launches"] = launches["update_matrices_rows"]
         del out, whole, prev, curr
+
+
+def _head_rows(seed=0):
+    """HEAD_ROWS PC1-like rows of HEAD_SEC seconds, the first half at 30 fps
+    and the rest at 25 fps (NaN-padded to the 30-fps length): decaying,
+    slowing oscillations with noise, a NaN gap in every fourth row."""
+    rng = np.random.default_rng(seed)
+    n = HEAD_SEC * 30
+    t_all = np.full((HEAD_ROWS, n), np.nan)
+    p_all = np.full((HEAD_ROWS, n), np.nan)
+    for i in range(HEAD_ROWS):
+        fs = 30.0 if i < HEAD_ROWS // 2 else 25.0
+        m = int(HEAD_SEC * fs)
+        t = np.arange(m) / fs
+        f0, decay, chirp = rng.uniform(2.0, 4.0), rng.uniform(0.05, 0.3), rng.uniform(0.0, 0.1)
+        x = (np.exp(-decay * t) * np.sin(2 * np.pi * (f0 * t - 0.5 * chirp * t * t))
+             + 0.05 * rng.normal(size=m))
+        if i % 4 == 3:
+            x[60:75] = np.nan
+        t_all[i, :m] = t
+        p_all[i, :m] = x
+    return t_all, p_all
+
+
+def _head_agree(a, b, what):
+    """Status and Peak_n equal, the float fields within HEAD_RTOL (NaN
+    where the other is NaN); returns the largest relative difference."""
+    if not (np.array_equal(a.status, b.status) and np.array_equal(a.peak_n, b.peak_n)):
+        raise AssertionError(f"{what}: status or Peak_n differ")
+    worst = 0.0
+    for f in ("pc1_area", "ads_slope", "ads_r2", "kendall_tau", "kendall_p"):
+        x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+        if not np.array_equal(np.isnan(x), np.isnan(y)):
+            raise AssertionError(f"{what}: {f} NaN in one and not the other")
+        fin = np.isfinite(y)
+        d = np.abs(x[fin] - y[fin])
+        if np.any(d > HEAD_RTOL * np.abs(y[fin])):
+            raise AssertionError(f"{what}: {f} differs by more than rtol {HEAD_RTOL}")
+        worst = max([worst, *(d / np.maximum(np.abs(y[fin]), 1e-300))])
+    return worst
+
+
+def phase_metric_head(device, smi, cohort_t, cohort_pc1):
+    """pc1_metrics_batch against K calls of pc1_metrics on the card, over
+    phase 9's stage C input and over HEAD_ROWS synthetic 60-s rows (two
+    window shapes, several row blocks): equal, then timed in turns."""
+    from btcs_pnes_optical_flow_tpu_torch.config import MetricParams
+    from btcs_pnes_optical_flow_tpu_torch.models import metrics as mm
+
+    print("== 14. metric head, batched vs row loop")
+    params = MetricParams()
+    for label, (t_all, p_all) in (("phase 9's stage C input", (cohort_t, cohort_pc1)),
+                                  (f"{HEAD_ROWS} synthetic rows of {HEAD_SEC} s at 30/25 fps",
+                                   _head_rows())):
+        k, n = t_all.shape
+
+        def batch():
+            return mm.pc1_metrics_batch(t_all, p_all, params, device=device)
+
+        def loop():
+            rows = [mm.pc1_metrics(t, p, params, device=device) for t, p in zip(t_all, p_all)]
+            return mm.PC1Metrics(*(np.array([float(getattr(r, f)) for r in rows])
+                                   for f in mm.PC1Metrics._fields))
+
+        blocks = []
+        core = mm._pc1_metrics_core_batch
+        mm._pc1_metrics_core_batch = lambda t, *a: blocks.append((t.shape[0], a[1:3])) or core(t, *a)
+        try:
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+            got = batch()
+            peak = torch.cuda.max_memory_allocated(device) - base
+        finally:
+            mm._pc1_metrics_core_batch = core
+        worst = _head_agree(got, loop(), f"{label}: batched vs row loop")
+        secs = {"batched": [], "row loop": []}
+        for _ in range(HEAD_ROUNDS):
+            for name, fn in (("batched", batch), ("row loop", loop), ("row loop", loop),
+                             ("batched", batch)):
+                t0 = time.perf_counter()
+                fn()
+                secs[name].append(time.perf_counter() - t0)
+        med = {name: statistics.median(v) for name, v in secs.items()}
+        per_block = max(1, mm.BLOCK_ELEMS // ((n - 1) * n))
+        print(f"{label}: {k} rows × N = {n}, status counts "
+              f"{ {int(v): int(c) for v, c in zip(*np.unique(got.status, return_counts=True))} }, "
+              f"{len(blocks)} blocks of at most {per_block} rows (rows, (k_smooth, p95_win_n)): "
+              f"{blocks}; device memory above the inputs {peak / 2**20:.1f} MiB")
+        print(f"{label}: batched equals the row loop (status, Peak_n exact; largest relative "
+              f"difference {worst:.3e}, bar {HEAD_RTOL}); median s over {2 * HEAD_ROUNDS} runs "
+              f"each, in turns: batched {med['batched']:.4f}, row loop {med['row loop']:.4f} "
+              f"({med['row loop'] / med['batched']:.1f}×) on [{smi}]")
 
 
 def phase_profile(title, run, host_top=0):
@@ -1513,13 +1625,15 @@ def main():
     phase_profile("== 8b. device time by kernel, one ROI-dispatched chunk",
                   lambda: roi_body_flow_seq(chunk, exd, eyd, masks, flow_p))
     del chunk, exd, eyd, masks
-    for number, phase, args in ((9, phase_cohort, (device, smi, rows)),
-                                (10, phase_compat, (clip, device, smi)),
-                                (11, phase_pc1_engines, (device, smi, full_feats)),
-                                (12, phase_bench_config, (clip, device, smi, rows, pc1_fp32)),
-                                (13, phase_sharded, (clip, device, smi, rows))):
+    out = {}
+    for number, run in ((9, lambda: phase_cohort(device, smi, rows)),
+                        (10, lambda: phase_compat(clip, device, smi)),
+                        (11, lambda: phase_pc1_engines(device, smi, full_feats)),
+                        (12, lambda: phase_bench_config(clip, device, smi, rows, pc1_fp32)),
+                        (13, lambda: phase_sharded(clip, device, smi, rows)),
+                        (14, lambda: phase_metric_head(device, smi, *out[9]))):
         t0 = time.perf_counter()
-        phase(*args)
+        out[number] = run()
         print(f"phase {number}: {time.perf_counter() - t0:.1f} s")
     names = [name for name, *_ in KERNELS] + [name for name, *_ in TV_KERNELS]
     print(json.dumps({"kernels": [rows[name] for name in names]}))

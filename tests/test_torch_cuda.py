@@ -671,3 +671,41 @@ def test_cohort_over_a_mesh_of_shards_on_the_card(card):
     m = cohort.cohort_step(*args, mesh=Mesh([card] * 4))
     for x, y in zip(a, m):
         torch.testing.assert_close(y, x, rtol=1e-6, atol=1e-7, equal_nan=True)
+
+
+def _metric_rows(k=12, n=420):
+    """k PC1-like rows at 30 and 32 fps (two window shapes), one with too
+    few valid samples and one with too few in the 0–10 s window."""
+    rng = np.random.default_rng(9)
+    t_all = np.full((k, n), np.nan)
+    p_all = np.full((k, n), np.nan)
+    for i in range(k):
+        fs = 30.0 if i % 2 else 32.0
+        t = np.arange(n) / fs
+        x = (np.exp(-0.25 * t) * np.sin(2 * np.pi * (3.0 * t - 0.04 * t * t))
+             + 0.05 * rng.normal(size=n))
+        t_all[i], p_all[i] = t, x
+    p_all[0, 5:] = np.nan
+    t_all[1, 6:] += 30.0
+    return t_all, p_all
+
+
+@pytest.mark.parametrize("rows_per_block", [1, 5])
+def test_metric_head_batched_on_the_card(card, rows_per_block, monkeypatch):
+    """pc1_metrics_batch on the card in row blocks: equal to K calls of
+    pc1_metrics on the card (rel 1e-6) and to the CPU batch (rel 1e-4)."""
+    from btcs_pnes_optical_flow_tpu_torch.models import metrics as mm
+
+    t_all, p_all = _metric_rows()
+    n = t_all.shape[1]
+    monkeypatch.setattr(mm, "BLOCK_ELEMS", rows_per_block * (n - 1) * n)
+    got = mm.pc1_metrics_batch(t_all, p_all, device=card)
+    rows = [mm.pc1_metrics(t, p, device=card) for t, p in zip(t_all, p_all)]
+    cpu = mm.pc1_metrics_batch(t_all, p_all, device="cpu")
+    assert list(got.status[:2]) == [1, 2] and np.all(got.status[2:] == 0)
+    for ref, rtol in ((mm.PC1Metrics(*(np.array([float(getattr(r, f)) for r in rows])
+                                       for f in mm.PC1Metrics._fields)), 1e-6), (cpu, 1e-4)):
+        assert np.array_equal(got.status, ref.status)
+        assert np.array_equal(got.peak_n, ref.peak_n)
+        for f in ("pc1_area", "ads_slope", "ads_r2", "kendall_tau", "kendall_p"):
+            np.testing.assert_allclose(getattr(got, f), getattr(ref, f), rtol=rtol, err_msg=f)
