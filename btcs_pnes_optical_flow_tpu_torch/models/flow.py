@@ -5,8 +5,9 @@ compute_roi_mean_body_flow, optical_flow.py:136-189).  Frame pairs are
 the batch axis: a chunk of pairs goes through dense flow, the projection
 onto per-pair body axes and the mean over each ROI mask.  ROI boxes
 (``params.roi_active_px``) pass through to the flow engine.  JAX's
-``roi_body_flow_checked`` served only the escalation tier of the banded
-warp; here it is ``roi_body_flow``, whose warp never clips.
+``roi_body_flow_checked`` is the escalation tier of its banded warp; here
+it returns ``roi_body_flow``'s features with zero clip counts, since the
+port's warp never clips.
 """
 
 from __future__ import annotations
@@ -76,6 +77,15 @@ def roi_body_flow_seq(frames, ex, ey, roi_masks, params: FarnebackParams = Farne
     flow = farneback_flow_seq(frames, params)
     clips = torch.zeros((frames.shape[0] - 1,), dtype=torch.int32, device=frames.device)
     return _project_reduce(flow, ex, ey, roi_masks), clips
+
+
+def roi_body_flow_checked(prev_gray, gray, ex, ey, roi_masks,
+                          params: FarnebackParams = FarnebackParams()):
+    """``roi_body_flow`` with the per-pair clip counts, (features, (B,)
+    int32 zeros): JAX's middle escalation tier (``models/flow.py:94``),
+    whose fused banded warp counts the pixels it could not reach."""
+    clips = torch.zeros(prev_gray.shape[:-2], dtype=torch.int32, device=prev_gray.device)
+    return roi_body_flow(prev_gray, gray, ex, ey, roi_masks, params), clips
 
 
 def frame_times(pos_msec: Optional[np.ndarray], n_frames: int, fps: float) -> np.ndarray:

@@ -6,9 +6,10 @@ arrays keep their capacity N with live masks and carry a leading row axis
 K.  The two phases stay: the sampling rate of the compacted 0–10 s window
 is estimated first (``_estimate_fs_batch``), the host rounds it into the
 static smoothing window lengths, then the metrics are computed
-(``_pc1_metrics_core_batch``).  ``pc1_metrics`` runs one waveform as a
-batch of one; ``pc1_metrics_batch`` runs phase 1 once for all rows and
-phase 2 once per window shape, in row blocks of bounded memory.
+(``_pc1_metrics_core_batch``).  ``estimate_fs`` and ``pc1_metrics_core``
+are the two phases of one waveform, a batch of one, and ``pc1_metrics``
+runs them; ``pc1_metrics_batch`` runs phase 1 once for all rows and phase
+2 once per window shape, in row blocks of bounded memory.
 """
 
 from __future__ import annotations
@@ -113,6 +114,24 @@ def _pc1_metrics_core_batch(t_all: torch.Tensor, pc1_all: torch.Tensor, k_smooth
     )
 
 
+def estimate_fs(t_all: torch.Tensor, pc1_all: torch.Tensor,
+                params: MetricParams = MetricParams()):
+    """Phase 1 of one (N,) waveform (JAX ``models/metrics.py:69``): the
+    sampling rate of its compacted 0–10 s window and its status, 0-d
+    tensors on its device; the batched phase on a batch of one."""
+    fs, status = _estimate_fs_batch(t_all[None], pc1_all[None], params)
+    return fs[0], status[0]
+
+
+def pc1_metrics_core(t_all: torch.Tensor, pc1_all: torch.Tensor, k_smooth: int, p95_win_n: int,
+                     params: MetricParams = MetricParams()) -> PC1Metrics:
+    """Phase 2 of one (N,) waveform (JAX ``models/metrics.py:78``) for the
+    odd window lengths ``k_smooth`` and ``p95_win_n``; the fields are 0-d
+    tensors.  The batched core on a batch of one."""
+    res = _pc1_metrics_core_batch(t_all[None], pc1_all[None], k_smooth, p95_win_n, params)
+    return PC1Metrics(*(v[0] for v in res))
+
+
 def _window_lens(fs: float, params: MetricParams):
     """The static (k_smooth, p95_win_n) the reference derives from fs."""
     return (smooth_window_len(fs, params.smooth_sec),
@@ -128,19 +147,18 @@ def pc1_metrics(t_all, pc1_all, params: MetricParams = MetricParams(), strict: b
     reference does (optical_PC1.py:250,261); otherwise returns NaN fields
     with a nonzero status.
     """
-    t = torch.as_tensor(t_all, dtype=torch.float32, device=device)[None]
-    p = torch.as_tensor(pc1_all, dtype=torch.float32, device=device)[None]
-    fs, status = _estimate_fs_batch(t, p, params)
-    st = int(status[0])
+    t = torch.as_tensor(t_all, dtype=torch.float32, device=device)
+    p = torch.as_tensor(pc1_all, dtype=torch.float32, device=device)
+    fs, status = estimate_fs(t, p, params)
+    st = int(status)
     if st != 0:
         if strict:
             raise RuntimeError("Too few valid samples in input CSV." if st == 1
                                else "Too few samples in the 0-10 s window.")
         nan = torch.full((), float("nan"), dtype=torch.float32, device=t.device)
         return PC1Metrics(nan, nan, nan, nan, nan,
-                          torch.zeros((), dtype=torch.int32, device=t.device), status[0])
-    res = _pc1_metrics_core_batch(t, p, *_window_lens(float(fs[0]), params), params)
-    return PC1Metrics(*(v[0] for v in res))
+                          torch.zeros((), dtype=torch.int32, device=t.device), status)
+    return pc1_metrics_core(t, p, *_window_lens(float(fs), params), params)
 
 
 def pc1_metrics_batch(t_all, pc1_all, params: MetricParams = MetricParams(), *,

@@ -5,12 +5,17 @@ on a prefetch thread → ROI-dispatched Farnebäck flow + ROI reduction on
 the device → band-pass + sliding-window PCA → metric head.  Every entry
 point takes the ``device`` it runs on; none picks one.
 
-The JAX package's escalation ladder (``escalate_clipped_pairs``) has no
-counterpart: the port's warp samples directly and never clips, so
-``run_flow_stage`` raises if a clip count is ever non-zero.  The
-per-chunk log line keeps its escalation counters, which stay 0.  CSVs
-are written by the port's pandas-free ``dataio/contracts.py`` writers,
-byte for byte what the JAX package's pandas writers give.
+The port's warp samples directly and never clips, so ``run_flow_stage``
+raises if a clip count is ever non-zero; the per-chunk log line keeps its
+escalation counters, which stay 0.  ``escalate_clipped_pairs`` keeps the
+JAX package's escalation ladder callable for clip counts that come from
+elsewhere (the JAX banded warp's), recomputing the listed pairs.  CSVs are
+written by the port's pandas-free ``dataio/contracts.py`` writers, byte
+for byte what the JAX package's pandas writers give.
+
+With a checkpoint directory, a stored chunk is loaded only when it holds
+the pairs this run has at its position: a chunk stored by a run over a
+recording that ended inside it (a short tail chunk) is recomputed.
 """
 
 from __future__ import annotations
@@ -34,7 +39,11 @@ from btcs_pnes_optical_flow_tpu_torch.dataio.video import (
 )
 from btcs_pnes_optical_flow_tpu_torch.models import metrics as metrics_model
 from btcs_pnes_optical_flow_tpu_torch.models import pc1 as pc1_model
-from btcs_pnes_optical_flow_tpu_torch.models.flow import roi_body_flow_seq, skel_indices
+from btcs_pnes_optical_flow_tpu_torch.models.flow import (
+    roi_body_flow,
+    roi_body_flow_seq,
+    skel_indices,
+)
 from btcs_pnes_optical_flow_tpu_torch.ops.cvx import fill_poly_mask
 from btcs_pnes_optical_flow_tpu_torch.ops.farneback import roi_dispatch_params
 from btcs_pnes_optical_flow_tpu_torch.utils.timing import StageTimer, logger
@@ -42,6 +51,48 @@ from btcs_pnes_optical_flow_tpu_torch.utils.timing import StageTimer, logger
 # Chunks in flight before the oldest is resolved on the host: the device
 # computes chunk k while the host decodes and dispatches the next ones.
 _PIPELINE_DEPTH = 2
+
+
+def escalate_clipped_pairs(
+    vx: np.ndarray,
+    vy: np.ndarray,
+    mg: np.ndarray,
+    clips,
+    frames: np.ndarray,
+    ex_s: np.ndarray,
+    ey_s: np.ndarray,
+    masks_dev: torch.Tensor,
+    config: PipelineConfig,
+    n_pairs: int,
+    first: int = 0,
+) -> tuple:
+    """The JAX package's ladder for pairs whose banded warp clipped
+    (``models/pipeline.py:43``): the pairs with ``clips[:n_pairs] > 0`` are
+    recomputed from ``frames`` (the chunk's frames, pair i from frames i and
+    i+1) and their axes through the port's flow, which computes what the
+    JAX exact engine computes, on ``masks_dev``'s device; vx/vy/mg are fixed
+    in place.  There is no deep-window tier, so every listed pair goes the
+    exact way.  Returns (n_clipped, n_exact), (0, 0) when none is listed.
+    """
+    clips = clips.cpu().numpy() if isinstance(clips, torch.Tensor) else np.asarray(clips)
+    bad = np.nonzero(clips[:n_pairs] > 0)[0]
+    if not bad.size:
+        return 0, 0
+    logger.warning("flow chunk @%d: %d/%d pairs exceeded the banded warp span; recomputing "
+                   "them through the port's flow", first, bad.size, n_pairs)
+
+    def put(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype), device=masks_dev.device)
+
+    for s in range(0, bad.size, 8):
+        sel = bad[s : s + 8]
+        f = roi_body_flow(put(frames[sel], np.uint8), put(frames[sel + 1], np.uint8),
+                          put(ex_s[sel], np.float32), put(ey_s[sel], np.float32), masks_dev,
+                          config.flow)
+        vx[sel] = f.vx.cpu().numpy()
+        vy[sel] = f.vy.cpu().numpy()
+        mg[sel] = f.mag.cpu().numpy()
+    return int(bad.size), int(bad.size)
 
 
 @dataclasses.dataclass
@@ -159,9 +210,13 @@ def run_flow_stage(
         ey = skeleton.ey[sk]
         ok = np.isfinite(ex).all(axis=1) & np.isfinite(ey).all(axis=1)
 
-        if store is not None and store.has(first):
-            pending.append((first, n_pairs, None, t_chunk[:n_pairs], sk[:n_pairs],
-                            store.load(first), None))
+        cached = store.load(first) if store is not None and store.has(first) else None
+        if cached is not None and len(cached["vx"]) != n_pairs:
+            logger.warning("flow chunk @%d: the stored chunk holds %d pairs, this run %d; "
+                           "recomputing it", first, len(cached["vx"]), n_pairs)
+            cached = None
+        if cached is not None:
+            pending.append((first, n_pairs, None, t_chunk[:n_pairs], sk[:n_pairs], cached, None))
         else:
             ex_safe = np.where(ok[:, None], ex, 0.0).astype(np.float32)
             ey_safe = np.where(ok[:, None], ey, 0.0).astype(np.float32)
@@ -249,12 +304,14 @@ def run_full(
     flow_csv: Optional[str] = None,
     pc1_csv: Optional[str] = None,
     summary_csv: Optional[str] = None,
+    checkpoint_dir: Optional[str] = None,
     *,
     device,
     timer: Optional[StageTimer] = None,
 ):
     """video + skeleton + ROIs → (flow, pc1, metrics) on ``device``.
 
+    ``checkpoint_dir`` is the flow stage's chunk store (``run_flow_stage``).
     A ``timer`` collects the wall time of the stages "flow" (items:
     frames), "pc1" and "metrics" (items: ROIs), fenced on a CUDA device.
     """
@@ -263,7 +320,7 @@ def run_full(
 
     with stage("flow"):
         flow = run_flow_stage(video, skeleton, roi_polygons, config, chunk_pairs, flow_csv,
-                              device=device)
+                              checkpoint_dir, device=device)
     with stage("pc1"):
         pc1 = run_pc1_stage(flow, config, pc1_csv, device=device)
     with stage("metrics"):

@@ -2,7 +2,8 @@
 (Farnebäck), the TV-L1 flow engine, the production pipeline run_full
 (decode → ROI-dispatched flow → PC1 → metrics), the cohort runner, the
 reference-compatible CLIs, streaming PC1, the JAX bench's bf16 flow config,
-the height-sharded flow and the batched metric head.
+the height-sharded flow, the batched metric head and BASELINE config 3 (a
+10-minute 1080p recording with checkpoint resume).
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -76,11 +77,33 @@ Phases (any failed check raises, so the exit code is non-zero):
              card over phase 9's stage C input (32 rows) and over 128
              synthetic 60-s rows (half 30 fps, half 25 fps: two window
              shapes, 20-row blocks): status and Peak_n equal, the floats
-             within rel 1e-6, the blocks, and the median seconds of both.
+             within rel 1e-6, the blocks, and the median seconds of both;
+15. BASELINE config 3 — a 10-minute 1080p recording (18001 frames at 30 fps,
+             a rendered 129-frame clip played forward and back) through
+             run_full under the JAX bench's flow config, its 1080p ROI and
+             chunks of 64 pairs: the launches of one chunk through
+             run_flow_stage against the schedule (4 K1, 8 K4 bf16, 1 K2 bf16,
+             9 K3); (15a) at each level of one 64-pair chunk K1, K2 bf16 and
+             K3 (whole), K4 bf16 (the level's box tiles) and K3 (box mode)
+             bit-equal to their plain versions, each launch then timed at its
+             level and each kernel's launches of the chunk back to back beside
+             their bound, and the same checks at level 0 of a 256-pair chunk;
+             (15b) on the first chunk ROI against full-frame features, kernel
+             against plain path, bf16 against fp32 flow EPE in the ROI; (15c)
+             run_flow_stage over 2 minutes at chunks of 32/64/128/256 pairs:
+             frames/s, peak device memory, launches against the schedule;
+             (15d) the 10-minute run_full with a checkpoint store: frames/s,
+             stage seconds, peak device memory and host RSS (sampled);
+             (15e) a run killed by a decode error 40% in and a recording cut
+             inside a chunk, each resumed over the whole recording and equal
+             to 15d's features, the chunks recomputed counted by K1's
+             launches; (15f) pc1_streaming against run_pc1_stage; (15g) a
+             profile of two chunks with the device's idle gaps.
 Phase 3 and 3b also hold K2's and K4's bf16 instances and K2's row-offset
 instance against their plain versions; phase 9 runs run_cohort over a mesh
 of every card present and, with one card, over a 4-shard cuda:0 layout
-(rows equal to the batched run's).  Phases 9–14 print their seconds.
+(rows equal to the batched run's).  Phases 9–15 print their seconds; the
+kernel rows of phase 15's kernels carry its 1080p figures (hd_*).
 
 Every kernel row of the kernels JSON carries its bound: the larger of the
 bytes it must move (each input read once, each output written once) over
@@ -96,11 +119,13 @@ from __future__ import annotations
 
 import csv
 import dataclasses
+import functools
 import json
 import os
 import pathlib
 import statistics
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -169,6 +194,21 @@ METRIC_RTOL = 1e-4  # metric head, card vs CPU on the same PC1
 # Phase 14: the batched metric head against its row loop on the card.
 HEAD_ROWS, HEAD_SEC, HEAD_ROUNDS = 128, 60, 2
 HEAD_RTOL = 1e-6
+# Phase 15, BASELINE config 3 (bench.py:285-370): a 10-minute 1080p
+# recording at 30 fps, played forward and back from a rendered base clip,
+# the bench's 1080p ROI (bench.py:301) and axes, its flow config
+# (BENCH_FLOW, bench.py:325-330) and run_full's default chunk.
+HD_H, HD_W, HD_FPS = 1080, 1920, 30.0
+HD_FRAMES = 18001  # 10 minutes
+HD_BASE_FRAMES = 129
+HD_ROI = np.array([[420.0, 270.0], [1560.0, 330.0], [1500.0, 900.0], [360.0, 840.0]])
+HD_CHUNK = 64
+HD_PLAIN_PAIRS = 32  # 15a's plain versions at 256 pairs run over slices of this many
+HD_SWEEP_FRAMES = 3601  # 2 minutes
+HD_SWEEP_CHUNKS = (32, 64, 128, 256)
+HD_CRASH_FRAME = 7200  # 15e's decode error, 40% into the recording
+HD_TAIL_FRAMES = 7000  # 15e's cut recording: 6999 pairs, a 23-pair tail chunk
+STREAM_CORR = 0.9999  # phase 11's streaming bar
 # TV-L1: (name, K, TPU kernel it replaces, tolerance, and why).
 TV_KERNELS = (
     ("warp_sample", "K5", f"{PALLAS}:1359", 1e-5,
@@ -1362,10 +1402,11 @@ def phase_metric_head(device, smi, cohort_t, cohort_pc1):
               f"({med['row loop'] / med['batched']:.1f}×) on [{smi}]")
 
 
-def phase_profile(title, run, host_top=0):
+def phase_profile(title, run, host_top=0, gaps=False):
     """Device time by kernel over ``run`` (torch.profiler); with host_top,
-    also the host operators with the most self time.  Returns the total
-    device time in ms, or None where the profiler recorded none."""
+    also the host operators with the most self time; with gaps, the
+    device's idle gaps between kernels.  Returns the total device time in
+    ms, or None where the profiler recorded none."""
     from torch.profiler import ProfilerActivity, profile
 
     print(title)
@@ -1392,7 +1433,36 @@ def phase_profile(title, run, host_top=0):
         print(f"  host self time under the profiler {host_total / 1e3:.3f} ms; the largest:")
         for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:host_top]:
             print(f"  {e.self_cpu_time_total / 1e3:9.3f} ms x{e.count:<5d} {e.key[:90]}")
+    if gaps:
+        _device_gaps([(e.time_range.start, e.time_range.end) for e in prof.events()
+                      if getattr(e, "device_type", None) == cuda])
     return total / 1e3
+
+
+def _device_gaps(spans):
+    """The device's timeline from its kernels' (start, end) spans in µs:
+    busy share of the span from the first kernel's start to the last's end,
+    and the idle gaps between kernels, largest first."""
+    if not spans:
+        print("  device gaps: no kernel spans recorded")
+        return
+    spans.sort()
+    busy, idle = 0.0, []
+    lo, hi = spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy += hi - lo
+            idle.append((s - hi, hi - spans[0][0]))
+            lo = s
+        hi = max(hi, e)
+    busy += hi - lo
+    span = hi - spans[0][0]
+    idle.sort(reverse=True)
+    print(f"  device timeline {span / 1e3:.3f} ms: busy {busy / 1e3:.3f} ms "
+          f"({100 * busy / span:.1f}%), {len(idle)} idle gaps, "
+          f"{sum(g > 1e3 for g, _ in idle)} over 1 ms, summing {sum(g for g, _ in idle) / 1e3:.3f} "
+          f"ms; largest (ms at ms): "
+          + ", ".join(f"{g / 1e3:.3f} at {t / 1e3:.1f}" for g, t in idle[:8]))
 
 
 def _tv_level_planes(prev, curr, flow, level, p):
@@ -1590,6 +1660,497 @@ def phase_tvl1_slice(tv_clip, device, smi, rows, flow_plain):
     return prev, curr, p, card_s
 
 
+def _pingpong_source(base, n_frames, fail_at=None):
+    """A VideoSource of n_frames gray frames at 30 fps: the base clip played
+    forward and back (0, 1, …, n−1, n−2, …, 1, 0, 1, …), so that no pair
+    jumps, with pos_msec = 1000·i/30; host memory holds the base clip only.
+    With fail_at, frame fail_at raises RuntimeError (a decode error)."""
+    from btcs_pnes_optical_flow_tpu_torch.dataio.video import VideoSource
+
+    class PingPong(VideoSource):
+        def frames(self):
+            period = 2 * (len(base) - 1)
+            for i in range(self.n_frames):
+                if i == fail_at:
+                    raise RuntimeError(f"decode error at frame {i}")
+                j = i % period
+                yield base[min(j, period - j)], 1000.0 * i / HD_FPS
+
+    src = PingPong()
+    src.fps, src.n_frames, (src.height, src.width) = HD_FPS, n_frames, base.shape[1:]
+    return src
+
+
+def _hd_level_rows(p, h, w):
+    """Per level: (k, size, ROI box, tile range or None, iterations)."""
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
+
+    out = []
+    for k in range(p.num_levels(h, w) + 1):
+        hk, wk = p.level_size(h, w, k)
+        out.append((k, (hk, wk), p.roi_active_px[k], fb.box_tiles(p.roi_active_px[k], hk, wk),
+                    p.iters_at(k)))
+    return out
+
+
+def phase_hd(device, smi, rows):
+    """BASELINE config 3 through the port's run_full: the 1080p kernels,
+    agreement on the first chunk, a chunk sweep, the 10-minute run with a
+    checkpoint store, crash and short-tail resume, PC1 and streaming PC1,
+    and a profile of two chunks."""
+    import tempfile
+
+    from bench import render_clip
+    from btcs_pnes_optical_flow_tpu_torch.config import FarnebackParams, PipelineConfig
+    from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_flow_stage
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
+    from btcs_pnes_optical_flow_tpu_torch.ops.cvx import fill_poly_mask
+
+    h, w = HD_H, HD_W
+    cfg = PipelineConfig(flow=dataclasses.replace(FarnebackParams(), **BENCH_FLOW))
+    print(f"== 15. BASELINE config 3: {HD_FRAMES} frames of {h}x{w} (10 min at {HD_FPS:g} fps), "
+          f"the 1080p ROI (bench.py:301), {BENCH_FLOW}, chunks of {HD_CHUNK} pairs")
+    t0 = time.perf_counter()
+    base = render_clip(HD_BASE_FRAMES, h, w, seed=1)
+    print(f"base clip {base.shape} rendered in {time.perf_counter() - t0:.1f} s "
+          f"({base.nbytes / 1e6:.0f} MB), played forward and back")
+    mask = fill_poly_mask(h, w, HD_ROI)
+    p = fb.roi_dispatch_params(cfg.flow, h, w, mask[None])
+    for k, (hk, wk), box, tiles, it in _hd_level_rows(p, h, w):
+        cover = fb.tile_box(tiles, hk, wk) if tiles else (0, hk, 0, wk)
+        share = (cover[1] - cover[0]) * (cover[3] - cover[2]) / (hk * wk)
+        print(f"level {k} {hk}x{wk}: box {box}, tiles {tiles} covering {cover} "
+              f"({100 * share:.0f}% of the level), {it} iterations")
+    per_chunk = _launch_schedule(p, h, w, 1)
+    want = dict(dict.fromkeys(fc.LAUNCHES, 0), poly_exp=4, update_matrices_tiles_bf16=8,
+                update_matrices_bf16=1, update_flow=9)
+    print(f"launches per {HD_CHUNK}-pair chunk: {per_chunk}")
+    if per_chunk != want:
+        raise AssertionError(f"the 1080p schedule is not 4 K1 / 8 K4 / 1 K2 / 9 K3: {want}")
+    fc.reset_launch_counts()
+    run_flow_stage(_pingpong_source(base, HD_CHUNK + 1), _skeleton(HD_CHUNK + 1), [HD_ROI], cfg,
+                   HD_CHUNK, device=device)
+    launches = dict(fc.LAUNCHES)
+    print(f"launches of one {HD_CHUNK}-pair chunk through run_flow_stage: {launches}")
+    if launches != want:
+        raise AssertionError("one 1080p chunk's launches differ from the schedule")
+    for name, count in launches.items():
+        if count:
+            rows[name]["hd_chunk_launches"] = count
+    _hd_kernels(base, p, device, rows)
+    _hd_agreement(base, cfg, p, mask, device)
+    _hd_sweep(base, cfg, p, device, smi)
+    build = pathlib.Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        flow, pc1, mets, timer = _hd_full(base, cfg, p, device, smi, rows,
+                                          os.path.join(tmp, "full"))
+        _hd_resume(base, cfg, device, flow, tmp)
+    _hd_pc1(flow, pc1, mets, timer, device, smi)
+    _hd_profile(base, cfg, device, smi)
+
+
+def _hd_check(name, kern, plain_of, rows, what, step=None):
+    """A kernel's output against its plain version at 1080p: bit-equal.
+    plain_of(sl) is the plain version over the batch slice sl (a frame's
+    or a pair's output depends on its own inputs only), run over slices of
+    ``step`` or over the whole batch; the row's max_abs_err takes the
+    larger error."""
+    torch.cuda.synchronize()
+    n = kern.shape[0]
+    err = 0.0
+    for s in range(0, n, step or n):
+        sl = slice(s, min(n, s + (step or n)))
+        err = max(err, float((kern[sl] - plain_of(sl)).abs().max()))
+    print(f"  {name} {what}: max_abs_err {err:.3e} (bar 0.0)")
+    if err != 0.0 or not torch.isfinite(kern).all():
+        raise AssertionError(f"{name} at 1080p disagrees with its plain version")
+    rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+
+
+def _hd_kernels(base, p, device, rows):
+    """15a: at each level of one 64-pair chunk (65 frames), K1, K2 bf16 and
+    K3 over the whole level where it runs whole (and at level 0), K4 bf16
+    over the level's box tiles and K3 in box mode on its output, each
+    bit-equal to its plain version on the tensors that are then timed:
+    each launch at its level, then each kernel's launches of the chunk back
+    to back, beside their bound.  Then the same at level 0 of a 256-pair
+    chunk, the sweep's largest, whose planes pass 2^31 elements, the plain
+    versions over slices of HD_PLAIN_PAIRS pairs."""
+    from btcs_pnes_optical_flow_tpu_torch.ops import cvx
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
+
+    h, w = base.shape[1:]
+    n, sigma, ws, gw = p.poly_n, p.poly_sigma, p.winsize, p.gaussian_win
+    print(f"== 15a. K1, K2 bf16, K4 bf16 and K3 at {h}x{w}: one {HD_CHUNK}-pair chunk, level by "
+          f"level, against the plain versions and timed; then level 0 at "
+          f"{HD_SWEEP_CHUNKS[-1]} pairs against the plain versions")
+
+    def level(frames, k, flow_full):
+        """Level k's image, expansion and flow (the kernel path's final flow
+        resized to the level and scaled) of the frames' pairs."""
+        lv, hk, wk = fb._level_image(frames.float(), k, p, h, w)
+        lv = lv.contiguous()
+        flow = (cvx.resize_bilinear(flow_full, hk, wk) * p.pyr_scale ** k).contiguous()
+        return lv, fc.poly_exp_cf(lv, n, sigma), flow
+
+    def checks(lv, poly, flow, tiles, what, whole, step=None):
+        """One level's kernels against their plain versions; returns the M
+        planes that the level's K3 reads (K4's where the level is boxed)
+        and K4's tile list."""
+        hk, wk = lv.shape[-2:]
+        r0, r1 = poly[:-1], poly[1:]
+        _hd_check("poly_exp", poly, lambda sl: fb.poly_exp_cf_plain(lv[sl], n, sigma), rows,
+                  what, step)
+        m = sel = None
+        if whole:
+            m = fc.update_matrices_cf(r0, r1, flow, "bf16")
+            _hd_check("update_matrices_bf16", m, lambda sl: fb.update_matrices_cf_plain(
+                r0[sl], r1[sl], flow[sl], "bf16"), rows, what, step)
+            _hd_check("update_flow", fc.update_flow_cf(m, ws, gw),
+                      lambda sl: fb.update_flow_cf_plain(m[sl], ws, gw), rows, f"{what}, whole",
+                      step)
+        if tiles is None:
+            return m, sel
+        del m
+        sel = fb.tile_list(flow.shape[0], tiles, hk, wk, device)
+        # The plain version's untouched tiles stay zero, as the kernel's must.
+        m = fc.update_matrices_tiles_cf(r0, r1, flow, sel, torch.zeros_like(r0), fb.TILE, "bf16")
+        _hd_check("update_matrices_tiles_bf16", m, lambda sl: fb.update_matrices_tiles_cf_plain(
+            r0[sl], r1[sl], flow[sl], fb.tile_list(sl.stop - sl.start, tiles, hk, wk, device),
+            torch.zeros_like(r0[sl]), fb.TILE, "bf16"), rows,
+            f"{what}, {sel.numel()} tiles of {tiles}", step)
+        box = fb.tile_box(tiles, hk, wk)
+        # The plain version leaves the flow outside the box as it was.
+        _hd_check("update_flow", fc.update_flow_cf(m, ws, gw, box, flow.clone()),
+                  lambda sl: fb.update_flow_cf_plain(m[sl], ws, gw, box, flow[sl].clone()), rows,
+                  f"{what}, box mode {box}", step)
+        return m, sel
+
+    frames = torch.as_tensor(base[: HD_CHUNK + 1], device=device)
+    flow_full = fb.farneback_flow_seq(frames, p).movedim(-1, 1).contiguous()
+    chunk = {k: dict(calls=[], bound_ms=0.0, level_ms={}) for k in (
+        "poly_exp", "update_matrices_tiles_bf16", "update_matrices_bf16", "update_flow")}
+
+    def add(name, k, fn, px, cost, times):
+        fn()
+        ms = statistics.median([_median_ms(fn, MAIN_REPS) for _ in range(2)])
+        bound = max(px * cost[0] / HBM_BYTES_PER_S, px * cost[1] / FP32_OPS_PER_S) * 1e3
+        c = chunk[name]
+        c["calls"] += [fn] * times
+        c["bound_ms"] += times * bound
+        c["level_ms"][k] = ms
+        print(f"  level {k} {name}: {ms:.4f} ms x{times}, bound {bound:.4f} ms ({px} px), "
+              f"share {100 * bound / ms:.1f}%")
+
+    for k, (hk, wk), _, tiles, it in _hd_level_rows(p, h, w):
+        lv, poly, flow = level(frames, k, flow_full)
+        m, sel = checks(lv, poly, flow, tiles, f"level {k} {hk}x{wk}, {HD_CHUNK} pairs",
+                        whole=tiles is None or k == 0)
+        r0, r1 = poly[:-1], poly[1:]
+        add("poly_exp", k, functools.partial(fc.poly_exp_cf, lv, n, sigma),
+            (HD_CHUNK + 1) * hk * wk, _k1_cost(n), 1)
+        if tiles is None:
+            add("update_matrices_bf16", k,
+                functools.partial(fc.update_matrices_cf, r0, r1, flow, "bf16"),
+                HD_CHUNK * hk * wk, _k2_cost(HD_CHUNK, "bf16"), it)
+            add("update_flow", k, functools.partial(fc.update_flow_cf, m, ws, gw),
+                HD_CHUNK * hk * wk, _k3_cost(ws, gw), it)
+        else:
+            n_listed = int(fb.tile_mask(sel, HD_CHUNK, hk, wk, fb.TILE).sum())
+            add("update_matrices_tiles_bf16", k, functools.partial(
+                fc.update_matrices_tiles_cf, r0, r1, flow, sel, m, fb.TILE, "bf16"),
+                n_listed, _k2_cost(HD_CHUNK, "bf16"), it)
+            y0, y1, x0, x1 = box = fb.tile_box(tiles, hk, wk)
+            add("update_flow", k, functools.partial(fc.update_flow_cf, m, ws, gw, box,
+                                                    flow.clone()),
+                HD_CHUNK * (y1 - y0) * (x1 - x0), _k3_cost(ws, gw), it)
+    total = bound = 0.0
+    for name, c in chunk.items():
+        def run(calls=c["calls"]):
+            for fn in calls:
+                fn()
+        c["ms"] = statistics.median([_median_ms(run, MAIN_REPS) for _ in range(2)])
+        total, bound = total + c["ms"], bound + c["bound_ms"]
+        rows[name].update(hd_chunk_ms=c["ms"], hd_chunk_bound_ms=c["bound_ms"],
+                          hd_level_ms=c["level_ms"])
+        print(f"  {name}: its {len(c['calls'])} launches of one chunk back to back "
+              f"{c['ms']:.4f} ms against a bound of {c['bound_ms']:.4f} ms "
+              f"({100 * c['bound_ms'] / c['ms']:.1f}%)")
+    print(f"kernel time per {HD_CHUNK}-pair chunk {total:.4f} ms, bound {bound:.4f} ms "
+          f"({100 * bound / total:.1f}%)")
+    del frames, flow_full, chunk, c, run, lv, poly, flow, m, sel, r0, r1
+
+    # The sweep's largest chunk at level 0: the planes' element offsets pass
+    # 2^31, where an int index would wrap.
+    b = HD_SWEEP_CHUNKS[-1]
+    frames = torch.as_tensor(np.stack([f for f, _ in _pingpong_source(base, b + 1).frames()]),
+                             device=device)
+    flow_full = torch.cat([fb.farneback_flow_seq(frames[s : s + HD_CHUNK + 1], p)
+                           for s in range(0, b, HD_CHUNK)]).movedim(-1, 1).contiguous()
+    lv, poly, flow = level(frames, 0, flow_full)
+    del frames, flow_full
+    print(f"  level 0 at {b} pairs: {poly.numel()} elements in the expansion (2^31 = {2**31})")
+    checks(lv, poly, flow, fb.box_tiles(p.roi_active_px[0], h, w), f"level 0, {b} pairs", whole=True, step=HD_PLAIN_PAIRS)
+    del lv, poly, flow
+    torch.cuda.empty_cache()
+
+
+def _hd_agreement(base, cfg, p, mask, device):
+    """15b: on the first chunk, ROI-dispatched against full-frame features,
+    the kernel path against the plain path, and the bench
+    config's bf16 flow in the ROI against the fp32 flow."""
+    from btcs_pnes_optical_flow_tpu_torch.config import FarnebackParams
+    from btcs_pnes_optical_flow_tpu_torch.models.flow import roi_body_flow_seq, to_device
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
+
+    print(f"== 15b. agreement on the first chunk ({HD_CHUNK} pairs)")
+    ex = np.tile(np.array([np.cos(THETA), -np.sin(THETA)], np.float32), (HD_CHUNK, 1))
+    ey = np.tile(np.array([np.sin(THETA), np.cos(THETA)], np.float32), (HD_CHUNK, 1))
+    frames, exd, eyd, masks = to_device(base[: HD_CHUNK + 1], ex, ey, mask[None], device)
+    boxed, _ = roi_body_flow_seq(frames, exd, eyd, masks, p)
+    full, _ = roi_body_flow_seq(frames, exd, eyd, masks, cfg.flow)
+    d = max(float((a - b).abs().max()) for a, b in zip(boxed, full))
+    print(f"ROI-dispatched vs full-frame features: max |d| {d:.3e} px/frame (bar {FEATURE_TOL})")
+    if not d <= FEATURE_TOL:
+        raise AssertionError("1080p ROI features differ from the full-frame ones")
+    got = fb.farneback_flow_seq(frames, p)
+    d = float((got - fb.farneback_flow_seq(frames, p, kernels=False)).abs().max())
+    print(f"kernel vs plain path, {HD_CHUNK} pairs: max |dflow| {d:.3e} px (bar 1e-6)")
+    if not d <= 1e-6:
+        raise AssertionError("the 1080p kernel path disagrees with the plain path")
+    inside = torch.as_tensor(mask, device=device)
+    for key, ref_p in (("PipelineConfig() fp32", FarnebackParams()),
+                       ("fp32, same schedule", dataclasses.replace(cfg.flow,
+                                                                   warp_precision="fp32"))):
+        e = (got - fb.farneback_flow_seq(frames, ref_p)).norm(dim=-1)[:, inside].flatten()
+        mean = float(e.double().mean())
+        print(f"bf16 flow EPE in the ROI vs {key}, {HD_CHUNK} pairs: mean {mean:.5f} px, max "
+              f"{float(e.max()):.5f} (bar: mean < {BENCH_EPE_PX})")
+        if not mean < BENCH_EPE_PX:
+            raise AssertionError(f"1080p bf16 flow EPE vs {key} is past the bar")
+
+
+def _hd_sweep(base, cfg, p, device, smi):
+    """15c: run_flow_stage over 2 minutes at each chunk size: frames/s,
+    peak device memory, launches against the schedule, features against
+    the 64-pair run's."""
+    from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_flow_stage
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
+
+    n = HD_SWEEP_FRAMES
+    skel = _skeleton(n)
+    print(f"== 15c. chunk sweep: run_flow_stage on {n} frames at chunks of {HD_SWEEP_CHUNKS}")
+    feats = {}
+    for chunk in HD_SWEEP_CHUNKS:
+        run_flow_stage(_pingpong_source(base, chunk + 1), skel, [HD_ROI], cfg, chunk,
+                       device=device)  # warm-up: the allocator at this chunk's shapes
+        n_chunks = -(-(n - 1) // chunk)
+        want = _launch_schedule(p, HD_H, HD_W, n_chunks)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fc.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_flow_stage(_pingpong_source(base, n), skel, [HD_ROI], cfg, chunk, device=device)
+        wall = time.perf_counter() - t0
+        launches = dict(fc.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"chunk {chunk}: {wall:.4f} s, {n / wall:.2f} frames/s, peak device memory "
+              f"{peak:.2f} GiB, {n_chunks} chunks, launches {launches} on [{smi}]")
+        if launches != want:
+            raise AssertionError(f"chunk {chunk}: launches differ from the schedule {want}")
+        if res.vx.shape != (n, 1) or not np.isfinite(res.vx[1:]).all():
+            raise AssertionError(f"chunk {chunk}: features {res.vx.shape}, not all finite")
+        feats[chunk] = res
+    # tests/test_pipeline.py's chunk-size bar: the per-pair flow does not
+    # depend on the chunk, the ROI means' reduction order may.
+    ref = feats[HD_CHUNK]
+    d, worst = 0.0, -np.inf
+    for r in feats.values():
+        for nm in ("vx", "vy", "mag"):
+            a, b = getattr(r, nm)[1:], getattr(ref, nm)[1:]
+            d = max(d, float(np.abs(a - b).max()))
+            worst = max(worst, float((np.abs(a - b) - 1e-6 * np.abs(b)).max()))
+    print(f"features at every chunk size vs {HD_CHUNK}: max |d| {d:.3e} px/frame "
+          f"(bar 1e-7 + 1e-6 x |value|)")
+    if not worst <= 1e-7:
+        raise AssertionError("the flow stage's features depend on the chunk size")
+
+
+def _hd_full(base, cfg, p, device, smi, rows, ck):
+    """15d: run_full over the 10-minute recording with a checkpoint store."""
+    from btcs_pnes_optical_flow_tpu_torch.dataio.checkpoint import ChunkStore
+    from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_full
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
+    from btcs_pnes_optical_flow_tpu_torch.utils.timing import StageTimer
+
+    n = HD_FRAMES
+    n_chunks = -(-(n - 1) // HD_CHUNK)
+    want = _launch_schedule(p, HD_H, HD_W, n_chunks)
+    print(f"== 15d. run_full on {n} frames ({n_chunks} chunks of {HD_CHUNK} pairs, the last "
+          f"padded) with a checkpoint store, StageTimer")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fc.reset_launch_counts()
+    stop, rss = threading.Event(), []
+    sampler = threading.Thread(target=_sample_rss, args=(stop, rss), daemon=True)
+    sampler.start()
+    timer = StageTimer(device)
+    t0 = time.perf_counter()
+    flow, pc1, mets = run_full(_pingpong_source(base, n), _skeleton(n), [HD_ROI], cfg, HD_CHUNK,
+                               checkpoint_dir=ck, device=device, timer=timer)
+    wall = time.perf_counter() - t0
+    launches = dict(fc.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stop.set()
+    sampler.join()
+    rss_text = (f"host RSS {max(rss) / 2**30:.2f} GiB at the run's peak, {rss[0] / 2**30:.2f} at "
+                f"its start ({len(rss)} samples, 10 ms apart)" if rss
+                else "host RSS not measured (/proc/self/statm unreadable)")
+    print(f"launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError("the 10-minute run's launches differ from the schedule")
+    for name in ("poly_exp", "update_matrices_tiles_bf16", "update_matrices_bf16", "update_flow"):
+        rows[name]["hd_launches"] = launches[name]
+    if flow.vx.shape != (n, 1) or not np.isnan(flow.vx[0, 0]) or not np.isfinite(flow.vx[1:]).all():
+        raise AssertionError(f"features {flow.vx.shape}: NaN is expected at frame 0 only")
+    if pc1.shape != (n, 1) or np.isfinite(pc1[:, 0]).sum() < n - 100 or int(mets[0].status):
+        raise AssertionError(f"PC1 {pc1.shape} with {np.isfinite(pc1).sum()} finite, metric "
+                             f"status {int(mets[0].status)}")
+    stored = ChunkStore(ck).completed_chunks()
+    if stored != list(range(0, n - 1, HD_CHUNK)):
+        raise AssertionError(f"the store holds {len(stored)} chunks, not {n_chunks}")
+    st = {k: round(v, 4) for k, v in timer.times.items()}
+    print(f"10-minute run_full: {wall:.4f} s, {n / wall:.2f} frames/s end to end "
+          f"({n / timer.times['flow']:.2f} through the flow stage); stage seconds {st}; peak "
+          f"device memory {peak:.2f} GiB; {rss_text}; "
+          f"{len(stored)} chunks stored on [{smi}]")
+    return flow, pc1, mets, timer
+
+
+def _sample_rss(stop, out, period=0.01):
+    """Append this process's resident set (bytes, /proc/self/statm) to out
+    every period seconds until stop is set."""
+    page = os.sysconf("SC_PAGE_SIZE")
+    while not stop.is_set():
+        try:
+            with open("/proc/self/statm") as f:
+                out.append(int(f.read().split()[1]) * page)
+        except OSError:
+            return
+        stop.wait(period)
+
+
+def _hd_resume(base, cfg, device, ref, tmp):
+    """15e: a run that dies of a decode error 40% in, resumed over the whole
+    recording; a recording cut inside a chunk, resumed over the whole.
+    Both equal 15d's features; K1 launches count the chunks recomputed."""
+    from btcs_pnes_optical_flow_tpu_torch.dataio.checkpoint import ChunkStore
+    from btcs_pnes_optical_flow_tpu_torch.models.pipeline import _PIPELINE_DEPTH, run_flow_stage
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
+
+    n = HD_FRAMES
+    skel = _skeleton(n)
+    firsts = list(range(0, n - 1, HD_CHUNK))
+
+    def stage(src, ck):
+        return run_flow_stage(src, skel, [HD_ROI], cfg, HD_CHUNK, checkpoint_dir=ck, device=device)
+
+    def resumed(ck, what, recompute):
+        fc.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = stage(_pingpong_source(base, n), ck)
+        wall = time.perf_counter() - t0
+        same = all(np.array_equal(getattr(res, nm), getattr(ref, nm), equal_nan=True) for nm in (
+            "frame", "t_sec", "skel_idx", "axes_ok", "vx", "vy", "mag"))
+        k1 = fc.LAUNCHES["poly_exp"]
+        print(f"{what}: resumed over the whole recording in {wall:.4f} s, K1 launches {k1} "
+              f"(expected 4 x {recompute} chunks recomputed), features array_equal to 15d's: "
+              f"{same}")
+        if not same or k1 != 4 * recompute:
+            raise AssertionError(f"{what}: the resumed run differs from the uninterrupted one")
+
+    print(f"== 15e. crash and resume: a decode error at frame {HD_CRASH_FRAME}, then a recording "
+          f"cut at {HD_TAIL_FRAMES} frames")
+    ck = os.path.join(tmp, "crash")
+    try:
+        stage(_pingpong_source(base, n, fail_at=HD_CRASH_FRAME), ck)
+    except RuntimeError as exc:  # the injected decode error, and nothing else
+        if "decode error" not in str(exc):
+            raise
+        print(f"the run stopped with: {exc}")
+    else:
+        raise AssertionError("the decode error did not reach run_flow_stage's caller")
+    stored = ChunkStore(ck).completed_chunks()
+    dispatched = (HD_CRASH_FRAME - 1) // HD_CHUNK
+    print(f"{len(stored)} chunks stored, {dispatched} dispatched: {dispatched - len(stored)} lost "
+          f"in flight (at most {_PIPELINE_DEPTH})")
+    if stored != firsts[: len(stored)] or not 0 <= dispatched - len(stored) <= _PIPELINE_DEPTH:
+        raise AssertionError(f"the crashed run stored {stored[:3]}… ({len(stored)} chunks)")
+    resumed(ck, "crash", len(firsts) - len(stored))
+
+    ck = os.path.join(tmp, "tail")
+    stage(_pingpong_source(base, HD_TAIL_FRAMES), ck)
+    tail = (HD_TAIL_FRAMES - 1) // HD_CHUNK * HD_CHUNK
+    stored = ChunkStore(ck).completed_chunks()
+    short = len(ChunkStore(ck).load(tail)["vx"])
+    print(f"cut recording: {len(stored)} chunks stored, the last at {tail} holding {short} pairs")
+    if stored[-1] != tail or short != (HD_TAIL_FRAMES - 1) % HD_CHUNK:
+        raise AssertionError("the cut recording's store does not end in its short tail chunk")
+    resumed(ck, "short tail", len(firsts) - len(stored) + 1)
+
+
+def _hd_pc1(flow, pc1, mets, timer, device, smi):
+    """15f: run_pc1_stage ("scan", inside 15d's run_full) against
+    pc1_streaming over the 10-minute features; the metric row."""
+    from btcs_pnes_optical_flow_tpu_torch.models.streaming import pc1_streaming
+
+    print(f"== 15f. PC1 over {len(pc1)} samples: run_pc1_stage vs pc1_streaming")
+    t0 = time.perf_counter()
+    stream = pc1_streaming(flow.vx[:, 0], flow.vy[:, 0], device=device)
+    stream_s = time.perf_counter() - t0
+    fin = np.isfinite(pc1[:, 0])
+    same_nan = np.array_equal(np.isnan(stream), ~fin)
+    corr = float(np.corrcoef(stream[fin], pc1[fin, 0])[0, 1])
+    print(f"run_pc1_stage (scan) {timer.times['pc1']:.4f} s, pc1_streaming (scan, chunks of "
+          f"4096, margin 240) {stream_s:.4f} s on [{smi}]; NaN pattern equal {same_nan}, corr "
+          f"{corr:.9f} (bar > {STREAM_CORR}), max |d| {float(np.abs(stream[fin] - pc1[fin, 0]).max()):.3e}")
+    if not (same_nan and corr > STREAM_CORR):
+        raise AssertionError("streaming PC1 disagrees with run_pc1_stage at 10 minutes")
+    m = mets[0]
+    print(f"metric row ({timer.times['metrics']:.4f} s): " + ", ".join(
+        f"{f} {float(getattr(m, f)):.6g}" for f in m._fields))
+
+
+def _hd_profile(base, cfg, device, smi):
+    """15g: two chunks through run_flow_stage under the profiler: device
+    time by kernel, the host's largest operators, the device's idle gaps
+    and its busy share of an unprofiled run."""
+    from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_flow_stage
+
+    n = 2 * HD_CHUNK + 1
+    skel = _skeleton(n)
+
+    def run():
+        return run_flow_stage(_pingpong_source(base, n), skel, [HD_ROI], cfg, HD_CHUNK,
+                              device=device)
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t0
+    busy = phase_profile(f"== 15g. device time by kernel, run_flow_stage over {n} frames (two "
+                         f"chunks), with decode and copies", run, host_top=10, gaps=True)
+    if busy is not None:
+        print(f"device busy share: {busy:.3f} ms of kernel time against {1e3 * wall:.3f} ms "
+              f"for an unprofiled run: {100 * busy / (1e3 * wall):.1f}% on [{smi}]")
+
+
 def main():
     smi = phase_device()
     from bench import render_clip
@@ -1631,7 +2192,8 @@ def main():
                         (11, lambda: phase_pc1_engines(device, smi, full_feats)),
                         (12, lambda: phase_bench_config(clip, device, smi, rows, pc1_fp32)),
                         (13, lambda: phase_sharded(clip, device, smi, rows)),
-                        (14, lambda: phase_metric_head(device, smi, *out[9]))):
+                        (14, lambda: phase_metric_head(device, smi, *out[9])),
+                        (15, lambda: phase_hd(device, smi, rows))):
         t0 = time.perf_counter()
         out[number] = run()
         print(f"phase {number}: {time.perf_counter() - t0:.1f} s")

@@ -598,6 +598,52 @@ def test_bf16_instances_of_k2_and_k4(card, shape):
             fc.LAUNCHES["update_matrices"], fc.LAUNCHES["update_matrices_tiles"]) == (1, 1, 1, 0)
 
 
+@pytest.mark.parametrize("kernel", ["K1", "K2 bf16", "K4 bf16", "K3 box"])
+def test_kernels_at_1080p(card, kernel):
+    """BASELINE config 3's shapes: 4 pairs of 1080×1920 under the JAX
+    bench's flow config and 1080p ROI (bench.py:301-330), where levels 0–2
+    are boxed and level 3 (135×240) runs whole.  K1 at level 0, K2's bf16
+    instance at level 3, K4's over the level-0 box's tiles and K3 in box
+    mode over that box, each bit-equal to its plain version."""
+    from bench import render_clip
+    from btcs_pnes_optical_flow_tpu_torch.ops.cvx import fill_poly_mask
+
+    h, w = 1080, 1920
+    roi = np.array([[420.0, 270.0], [1560.0, 330.0], [1500.0, 900.0], [360.0, 840.0]])
+    p = fb.roi_dispatch_params(FarnebackParams(warp_precision="bf16", iter_schedule=(3, 3, 2, 1)),
+                               h, w, fill_poly_mask(h, w, roi)[None])
+    frames = torch.as_tensor(render_clip(5, h, w, seed=1)).to(card)
+    level = 3 if kernel == "K2 bf16" else 0
+    lv, hk, wk = fb._level_image(frames.float(), level, p, h, w)
+    lv = lv.contiguous()
+    if kernel == "K1":
+        assert torch.equal(fc.poly_exp_cf(lv, p.poly_n, p.poly_sigma),
+                           fb.poly_exp_cf_plain(lv, p.poly_n, p.poly_sigma))
+        return
+    poly = fb.poly_exp_cf_plain(lv, p.poly_n, p.poly_sigma)
+    r0, r1 = poly[:-1], poly[1:]
+    rng = np.random.default_rng(41)
+    flow = torch.as_tensor(rng.normal(size=(4, 2, hk, wk)).astype(np.float32) * 3).to(card)
+    tiles = fb.box_tiles(p.roi_active_px[level], hk, wk)
+    assert (tiles is None) == (level == 3)
+    if kernel == "K2 bf16":
+        assert torch.equal(fc.update_matrices_cf(r0, r1, flow, "bf16"),
+                           fb.update_matrices_cf_plain(r0, r1, flow, "bf16"))
+        return
+    m = fb.update_matrices_cf_plain(r0, r1, flow, "bf16")
+    if kernel == "K4 bf16":
+        sel = fb.tile_list(4, tiles, hk, wk, card)
+        base = torch.zeros_like(m)
+        kern = fc.update_matrices_tiles_cf(r0, r1, flow, sel, base.clone(), fb.TILE, "bf16")
+        plain = fb.update_matrices_tiles_cf_plain(r0, r1, flow, sel, base.clone(), fb.TILE, "bf16")
+        assert torch.equal(kern, plain) and kern.abs().sum() > 0
+        return
+    box = fb.tile_box(tiles, hk, wk)
+    kern = fc.update_flow_cf(m, p.winsize, p.gaussian_win, box, flow.clone())
+    assert torch.equal(kern, fb.update_flow_cf_plain(m, p.winsize, p.gaussian_win, box,
+                                                     flow.clone()))
+
+
 @pytest.mark.parametrize("shape", [(2, 45, 67), (1, 33, 250), (2, 100, 256)])
 @pytest.mark.parametrize("n_shards,halo", [(1, 0), (3, 16), (5, 4)])
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])

@@ -42,6 +42,7 @@ def test_no_module_of_the_port_imports_the_jax_package():
     rel = {f.relative_to(REPO).as_posix() for f in files}
     assert {f"btcs_pnes_optical_flow_tpu_torch/parallel/{m}.py"
             for m in ("mesh", "cohort", "runner", "halo", "spatial")} <= rel
+    assert "btcs_pnes_optical_flow_tpu_torch/ops/farneback_fused.py" in rel
     offenders = {str(f.relative_to(REPO)): sorted(n & {JAX_PACKAGE, "jax", "jaxlib"})
                  for f in files for n in [_imported_top_names(f)]
                  if n & {JAX_PACKAGE, "jax", "jaxlib"}}

@@ -97,8 +97,9 @@ def test_port_never_imports_jax(tmp_path):
     the pipeline's run_full with its three CSVs (read back with the csv
     module), the flow stage with a checkpoint directory, then resumed from
     it, the three reference-compatible CLIs, run_cohort on its batched
-    and per-video paths with its CSV and over a two-shard CPU mesh, and
-    farneback_flow_sharded over four CPU shards."""
+    and per-video paths with its CSV and over a two-shard CPU mesh,
+    farneback_flow_sharded over four CPU shards, the fused path's names
+    and escalate_clipped_pairs."""
     code = (
         "import csv, math, os, sys\n"
         "BLOCKED = ('btcs_pnes_optical_flow_tpu', 'jax', 'jaxlib', 'pandas', 'cv2')\n"
@@ -203,6 +204,15 @@ def test_port_never_imports_jax(tmp_path):
         "sharded = run_cohort([CohortItem(n, clip, skel, [roi]) for n in 'abc'], chunk_pairs=32,\n"
         "                     mesh=Mesh([torch.device('cpu')] * 2), device='cpu')\n"
         "assert repr(sharded[:2]) == repr(batched) and sharded[2]['status'] == 0\n"
+        "from btcs_pnes_optical_flow_tpu_torch.config import PipelineConfig\n"
+        "from btcs_pnes_optical_flow_tpu_torch.models.pipeline import escalate_clipped_pairs\n"
+        "from btcs_pnes_optical_flow_tpu_torch.ops.farneback_fused import farneback_flow_seq\n"
+        "seq, zeros = farneback_flow_seq(torch.as_tensor(fr), return_clip=True)\n"
+        "assert seq.shape == (3, 40, 48, 2) and zeros.tolist() == [0, 0, 0]\n"
+        "fx = [np.zeros((3, 1)) for _ in range(3)]\n"
+        "n = escalate_clipped_pairs(*fx, np.array([0, 2, 0]), fr, ax, ax[:, ::-1],\n"
+        "                           torch.ones((1, 40, 48), dtype=torch.bool), PipelineConfig(), 3)\n"
+        "assert n == (1, 1) and abs(fx[0][1, 0] - float(f.vx[1, 0])) < 1e-6 and fx[0][0, 0] == 0.0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
