@@ -1,7 +1,7 @@
 // Farnebäck main-path kernels for Hopper (sm_90a), with a plain C interface.
 //
 // Four kernels: one per step of each pyramid level / iteration, and K2's
-// tile-list form for the levels that ROI dispatch boxes:
+// tile-list form (K4), which no path of the port runs now:
 //
 // K1 poly_exp_kernel — replaces btcs_pnes_optical_flow_tpu/ops/farneback_pallas.py
 //    poly_exp_fused_cf (body _poly_kernel_factory).  Per frame, the separable
@@ -15,23 +15,46 @@
 //    5 planes as one 16-byte vector.
 //
 // K2 update_matrices_kernel — replaces farneback_pallas.py
-//    update_matrices_banded_cf (body _make_kernel).  Per pixel, the bilinear
-//    sample of frame b+1's expansion at (x+dx, y+dy) under cv2's inside guard,
-//    the averaged A, the Δb fold, the 5-pixel rim damping and the 5 M planes
-//    [G_yy, G_xy, G_xx, h_y, h_x].  Bound: memory — 5 r0 + 2 flow floats in,
-//    5 M floats out, plus 4 corners × 5 planes of r1 that neighbouring threads
-//    share through L1/L2; about 40 flops per pixel.  Design: one thread per
-//    pixel, rows of 32 threads on consecutive addresses; the r1 corners are
-//    read only when the guard holds (outside it cv2 uses none of them), and
-//    the TPU kernel's banded window, clip counters and follow-up passes have
-//    no counterpart: a direct sample has no reach limit.
+//    update_matrices_banded_cf (body _make_kernel), with its `active` tile
+//    range: the whole level, or a box of it written into the level's M in
+//    place (a boxed level of ROI dispatch, as the JAX level loop runs K2 over
+//    a tile range, farneback_fused.py:131-174).  Per pixel, the bilinear
+//    sample of frame b+1's expansion at (x+dx, y+dy) under cv2's inside
+//    guard, the averaged A, the Δb fold, the 5-pixel rim damping and the 5 M
+//    planes [G_yy, G_xy, G_xx, h_y, h_x] (matrices_math).  Bound: memory —
+//    r0 and r1 are consecutive frames of one expansion, so each frame's 5
+//    floats are read once, plus 2 flow floats in and 5 M floats out: 48 B
+//    per pixel at 64 pairs; about 70 flops.  The pre-walk design (one
+//    thread per pixel, pair-major over the grid) read each frame twice, as
+//    r1 for pair b and as r0 for pair b+1, with a whole pair's planes
+//    (18 MB per frame for a 1080p level-0 box) in between, more than L2
+//    holds: ~68 B per pixel.  Design: a block owns one 8×32 tile and walks
+//    a run of consecutive pairs (see update_matrices_kernel), so frame b+1's
+//    tile is still in L1/L2 when pair b+1 reads it as r0; the run length is
+//    chosen by the wrapper from the launch size so that the grid fills the
+//    SMs many times over (a run's first pair reads its r0 frame once more).
+//    One pixel a thread, one warp a tile row: r0, flow and M move as whole
+//    128-byte rows and a warp's corner gathers stay within a few lines.  The
+//    next pair's flow is loaded into registers before this pair's gathers
+//    are consumed, so each pair costs one round trip to memory.  Staging
+//    each pair's r0 and flow in shared memory with 16-byte cp.async copies
+//    instead took 80 registers and a barrier per pair, and ran the 1080p
+//    level-0 box in 1.41 ms against this form's 1.18 on an H100 (700 W;
+//    scripts/k2_walk_variants.py); 16-byte accesses with 4 pixels a lane
+//    would spread each gather instruction over 4 times the cache lines.
+//    The r1 corners are read only when the guard holds (outside it cv2 uses
+//    none of them), and the TPU kernel's banded window, clip counters and
+//    follow-up passes have no counterpart: a direct sample has no reach
+//    limit.
 //    Instances: the precision of the horizontal lerp (fp32, or the TPU
 //    kernel's bf16 candidate MAC of warp_precision="bf16", each bf16 step
 //    rounded with __float2bfloat16_rn; the bytes moved are the same, so bf16
-//    buys nothing on this card and exists to compute what the TPU computes),
-//    and a row-offset instance for a height shard (parallel/spatial.py, which
-//    replaces spatial.py _update_matrices_sharded: r1 carries a halo of
-//    rows, targets are global rows, the rim damping uses global rows).
+//    buys nothing on this card and exists to compute what the TPU computes).
+//    update_matrices_rows_kernel is the row-offset form for a height shard
+//    (parallel/spatial.py, which replaces spatial.py
+//    _update_matrices_sharded: r1 carries a halo of rows, targets are global
+//    rows, the rim damping uses global rows) on the pre-walk design; at
+//    offset 0 without halo it is the pre-walk K2.
 //
 // K3 update_flow_kernel — replaces farneback_pallas.py update_flow_fused_cf
 //    (body _flow_kernel_factory).  The winsize window average of the 5 M
@@ -51,17 +74,20 @@
 //    update_matrices_banded_tiles_cf (body _make_kernel2).  K2's per-pixel
 //    math (the same device function, so the two stay bit-equal) over a list
 //    of tiles, written into an existing M in place; unlisted tiles are left
-//    as they were.  The level loop lists the tiles of each boxed level's ROI
-//    box for every pair.  Bound: as K2, memory — per listed tile the r0, flow
-//    and M bytes of its pixels plus the r1 corners.  Design: one block per
-//    listed tile reads its id from the list, so the grid is the list and no
-//    block is launched for an unlisted tile.  A tile is K2's 8×32 block, one
-//    thread per pixel: on an H100, 16×32 tiles with two rows per thread took
-//    48 registers against K2's 32 and ran 21% slower per pixel than K2.  The
-//    TPU kernel's anchored windows, band DMAs, coverage masks and residual
-//    clip counters (with window_from_residuals) exist because a TPU gather
-//    costs ~20 ns per index; a direct sample has no reach, so one visit
-//    always covers a tile and nothing needs counting.
+//    as they were.  In JAX this kernel runs only the follow-up passes over
+//    the tiles whose pixels a banded window missed; the port's direct
+//    sample misses none, so since K2 took the `active` box no path of the
+//    port runs K4 (it ran every boxed level over a device-built list of the
+//    box's tiles, with a read-back of the list's range per launch).  Bound:
+//    as K2, memory — per listed tile the r0, flow and M bytes of its pixels
+//    plus the r1 corners.  Design: one block per listed tile reads its id
+//    from the list, so the grid is the list and no block is launched for an
+//    unlisted tile.  A tile is 8×32, one thread per pixel: on an H100, 16×32
+//    tiles with two rows per thread took 48 registers against 32 and ran
+//    21% slower per pixel.  The TPU kernel's anchored windows, band DMAs,
+//    coverage masks and residual clip counters (with window_from_residuals)
+//    exist because a TPU gather costs ~20 ns per index; a direct sample has
+//    no reach, so one visit always covers a tile and nothing needs counting.
 //
 // Window sums (K1, K3).  Both kernels are separable window sums followed by
 // per-pixel arithmetic, and both must repeat their plain versions' float32
@@ -120,6 +146,16 @@ constexpr int kRun = 4;   // adjacent outputs of one horizontal-pass run
 constexpr int kRunsPerRow = kTW / kRun;             // 16
 constexpr int kRowsPerPass = kThreads / kRunsPerRow;  // 16: a thread takes 2 rows
 constexpr int kMaxTaps = 32;
+
+// K2's walk: a kWalkH × kWalkW tile per block of kThreads threads, one pixel
+// a thread, one warp a tile row.
+constexpr int kWalkH = 8;
+constexpr int kWalkW = 32;
+// At least 5 blocks an SM, so at most 51 registers a thread (ptxas uses
+// 48).  Without a minimum ptxas took 40, and the walk ran the 1080p level 0
+// 13-15% slower on an H100 (480p within 3%; scripts/k2_walk_variants.py).
+constexpr int kWalkMinBlocks = 5;
+static_assert(kWalkH * kWalkW == kThreads, "one thread per pixel of a walk tile");
 
 __host__ __device__ inline int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -445,31 +481,24 @@ __device__ __forceinline__ float lerp_x(float v0, float v1, float ax) {
   }
 }
 
-// One pixel (b, y, x) of M; rim = [sy (h), sx (w)], the rim damping at
-// (y, x) is sy[y] * sx[x].  K2, K4 and K2's row-offset instance all call it,
-// so they cannot drift apart.
+// One pixel's M from its r0 coefficients a0…a4, flow (dx, dy) and rim
+// damping `scale`, with r1b the 5 planes of frame b+1's expansion (plane
+// stride plane_ext); o = [G_yy, G_xy, G_xx, h_y, h_x].  K2's walk, K2's
+// row-offset instance and K4 all call it (the latter two through
+// matrices_pixel), so they cannot drift apart.
 //
 // Row-offset form (a height shard, ops/farneback.py
-// update_matrices_rows_cf_plain): r0, flow and m hold rows [row_off,
-// row_off + h) of an image of h_glob rows, r1 the same rows with `halo` rows
-// above and below (h + 2·halo rows); warp targets are global rows, and one
-// whose floor row lies outside r1 counts as outside the image.  The whole
-// image is row_off = halo = 0, h_glob = h.
+// update_matrices_rows_cf_plain): y is the row inside a shard that holds
+// rows [row_off, row_off + h) of an image of h_glob rows, r1 the same rows
+// with `halo` rows above and below (h_ext = h + 2·halo rows); warp targets
+// are global rows, and one whose floor row lies outside r1 counts as
+// outside the image.  The whole image is row_off = halo = 0, h_glob = h_ext.
 template <bool kBf16>
-__device__ __forceinline__ void matrices_pixel(const float* __restrict__ r0,
-                                               const float* __restrict__ r1,
-                                               const float* __restrict__ flow,
-                                               const float* __restrict__ rim,
-                                               float* __restrict__ m, long long b, int y, int x,
-                                               int h, int w, int row_off, int halo, int h_glob) {
-  const long long plane = (long long)h * w;
-  const int h_ext = h + 2 * halo;
-  const long long plane_ext = (long long)h_ext * w;
-  const long long pix = (long long)y * w + x;
-  const float scale = rim[y] * rim[h + x];
-  const float dx = flow[b * 2 * plane + pix];
-  const float dy = flow[b * 2 * plane + plane + pix];
-  const float* a = r0 + b * 5 * plane + pix;
+__device__ __forceinline__ void matrices_math(const float* __restrict__ r1b, long long plane_ext,
+                                              int y, int x, int w, int row_off, int halo,
+                                              int h_glob, int h_ext, float a0, float a1, float a2,
+                                              float a3, float a4, float dx, float dy, float scale,
+                                              float o[5]) {
   const float fx = (float)x + dx;
   const float fy = (float)(row_off + y) + dy;
   const float fxf = floorf(fx);
@@ -485,7 +514,7 @@ __device__ __forceinline__ void matrices_pixel(const float* __restrict__ r0,
                       ye < h_ext - 1;
   float s[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
   if (inside) {
-    const float* c = r1 + b * 5 * plane_ext + (long long)ye * w + xi;
+    const float* c = r1b + (long long)ye * w + xi;
 #pragma unroll
     for (int ch = 0; ch < 5; ++ch) {
       const float* p = c + ch * plane_ext;
@@ -494,7 +523,6 @@ __device__ __forceinline__ void matrices_pixel(const float* __restrict__ r0,
       s[ch] = top * (1.f - ay) + bot * ay;
     }
   }
-  const float a0 = a[0], a1 = a[plane], a2 = a[2 * plane], a3 = a[3 * plane], a4 = a[4 * plane];
   float r4 = inside ? (a2 + s[2]) * 0.5f : a2;
   float r5 = inside ? (a3 + s[3]) * 0.5f : a3;
   float r6 = inside ? (a4 + s[4]) * 0.25f : a4 * 0.5f;
@@ -507,30 +535,113 @@ __device__ __forceinline__ void matrices_pixel(const float* __restrict__ r0,
   r4 *= scale;
   r5 *= scale;
   r6 *= scale;
-  float* o = m + b * 5 * plane + pix;
   o[0] = r4 * r4 + r6 * r6;
-  o[plane] = (r4 + r5) * r6;
-  o[2 * plane] = r5 * r5 + r6 * r6;
-  o[3 * plane] = r4 * r2 + r6 * r3;
-  o[4 * plane] = r6 * r2 + r5 * r3;
+  o[1] = (r4 + r5) * r6;
+  o[2] = r5 * r5 + r6 * r6;
+  o[3] = r4 * r2 + r6 * r3;
+  o[4] = r6 * r2 + r5 * r3;
 }
 
-// K2 (kRows false: the whole image, the offset arguments unused) and its
-// row-offset instance (kRows true: a height shard, see matrices_pixel).
-template <bool kBf16, bool kRows>
-__global__ void update_matrices_kernel(const float* __restrict__ r0, const float* __restrict__ r1,
-                                       const float* __restrict__ flow,
-                                       const float* __restrict__ rim, float* __restrict__ m,
-                                       long long batch, int h, int w, int row_off, int halo,
-                                       int h_glob) {
+// One pixel (b, y, x) of M read from and written to global memory (K2's
+// row-offset instance and K4); rim = [sy (h), sx (w)], the rim damping at
+// (y, x) is sy[y] * sx[x].  The whole image is row_off = halo = 0,
+// h_glob = h.
+template <bool kBf16>
+__device__ __forceinline__ void matrices_pixel(const float* __restrict__ r0,
+                                               const float* __restrict__ r1,
+                                               const float* __restrict__ flow,
+                                               const float* __restrict__ rim,
+                                               float* __restrict__ m, long long b, int y, int x,
+                                               int h, int w, int row_off, int halo, int h_glob) {
+  const long long plane = (long long)h * w;
+  const int h_ext = h + 2 * halo;
+  const long long plane_ext = (long long)h_ext * w;
+  const long long pix = (long long)y * w + x;
+  const float* a = r0 + b * 5 * plane + pix;
+  const float* f = flow + b * 2 * plane + pix;
+  float o[5];
+  matrices_math<kBf16>(r1 + b * 5 * plane_ext, plane_ext, y, x, w, row_off, halo, h_glob, h_ext,
+                       a[0], a[plane], a[2 * plane], a[3 * plane], a[4 * plane], f[0], f[plane],
+                       rim[y] * rim[h + x], o);
+  float* out = m + b * 5 * plane + pix;
+#pragma unroll
+  for (int ch = 0; ch < 5; ++ch) out[ch * plane] = o[ch];
+}
+
+// K2's row-offset instance (a height shard, see matrices_math), one thread
+// per pixel on kThreadsX × kThreadsY blocks, pair-major over grid z.  It is
+// also the pre-walk design of K2 (row_off = halo = 0, h_glob = h), kept so
+// that a run can time the two on the same tensors.
+template <bool kBf16>
+__global__ void update_matrices_rows_kernel(const float* __restrict__ r0,
+                                            const float* __restrict__ r1,
+                                            const float* __restrict__ flow,
+                                            const float* __restrict__ rim, float* __restrict__ m,
+                                            long long batch, int h, int w, int row_off, int halo,
+                                            int h_glob) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= w || y >= h) return;
-  for (long long b = blockIdx.z; b < batch; b += gridDim.z) {
-    if constexpr (kRows)
-      matrices_pixel<kBf16>(r0, r1, flow, rim, m, b, y, x, h, w, row_off, halo, h_glob);
-    else
-      matrices_pixel<kBf16>(r0, r1, flow, rim, m, b, y, x, h, w, 0, 0, h);
+  for (long long b = blockIdx.z; b < batch; b += gridDim.z)
+    matrices_pixel<kBf16>(r0, r1, flow, rim, m, b, y, x, h, w, row_off, halo, h_glob);
+}
+
+// K2's walk: one block of kThreads threads owns one kWalkH × kWalkW tile of
+// the box [y_lo, y_hi) × [x_lo, x_hi) (the whole level: (0, h, 0, w)), one
+// pixel a thread, and walks the pairs b0 … b1-1 of one run in order; unit
+// u = run · n_tiles + tile, so the blocks in flight hold neighbouring tiles
+// of one run.  Pair b's corner gathers pull frame b+1's expansion around the
+// tile into L1/L2 just before pair b+1 reads that tile as its r0.  Each warp
+// is one tile row: its loads of r0 and flow and its stores of M are whole
+// 128-byte rows, its gathers span a row's neighbourhood.  A thread holds the
+// next pair's flow in registers, loaded before this pair's gathers are
+// consumed, so that the next pair's gathers (whose addresses need it) issue
+// at once, together with its r0 loads: one round trip to memory per pair.
+// No shared memory and no barrier: r1 is read from global memory only, so
+// the result does not depend on whether r1 aliases r0 shifted by one frame.
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, kWalkMinBlocks)
+    update_matrices_kernel(const float* __restrict__ r0, const float* __restrict__ r1,
+                           const float* __restrict__ flow, const float* __restrict__ rim,
+                           float* __restrict__ m, long long batch, int h, int w, int y_lo,
+                           int y_hi, int x_lo, int x_hi, int n_tx, int n_tiles,
+                           int pairs_per_run) {
+  const int run = blockIdx.x / n_tiles;
+  const int tile = blockIdx.x - run * n_tiles;
+  const int ty = tile / n_tx;
+  const int y = y_lo + ty * kWalkH + threadIdx.x / kWalkW;
+  const int x = x_lo + (tile - ty * n_tx) * kWalkW + threadIdx.x % kWalkW;
+  if (y >= y_hi || x >= x_hi) return;
+  const long long b0 = (long long)run * pairs_per_run;
+  const int n = (int)(b0 + pairs_per_run < batch ? pairs_per_run : batch - b0);
+  const float scale = rim[y] * rim[h + x];
+  const long long plane = (long long)h * w;
+  const long long pix = (long long)y * w + x;
+  // Pair b's planes: r0 and M at this pixel, flow at this pixel, and frame
+  // b+1's expansion for the gathers.
+  const float* a = r0 + b0 * 5 * plane + pix;
+  const float* f = flow + b0 * 2 * plane + pix;
+  const float* c = r1 + b0 * 5 * plane;
+  float* o = m + b0 * 5 * plane + pix;
+  float dx = f[0], dy = f[plane];
+  for (int k = 0; k < n; ++k) {
+    const float a0 = a[0], a1 = a[plane], a2 = a[2 * plane], a3 = a[3 * plane],
+                a4 = a[4 * plane];
+    float ndx = 0.f, ndy = 0.f;
+    if (k + 1 < n) {  // the next pair's flow, in flight during this pair
+      ndx = f[2 * plane];
+      ndy = f[3 * plane];
+    }
+    float out[5];
+    matrices_math<kBf16>(c, plane, y, x, w, 0, 0, h, h, a0, a1, a2, a3, a4, dx, dy, scale, out);
+#pragma unroll
+    for (int ch = 0; ch < 5; ++ch) o[ch * plane] = out[ch];
+    dx = ndx;
+    dy = ndy;
+    a += 5 * plane;
+    f += 2 * plane;
+    c += 5 * plane;
+    o += 5 * plane;
   }
 }
 
@@ -860,20 +971,54 @@ int fb_poly_exp(const float* img, const float* consts_host, const float* consts_
   }
 }
 
-// K2 (row_off = halo = 0, h_glob = h, rows = 0) or its row-offset instance
-// (rows = 1: r1 has h + 2·halo rows, rim = [sy of the shard's global rows,
-// sx]); bf16 selects the bf16 horizontal lerp.
-int fb_update_matrices(const float* r0, const float* r1, const float* flow, const float* rim,
-                       float* m, long long batch, int h, int w, int row_off, int halo, int h_glob,
-                       int rows, int bf16, void* stream) {
+// K2's row-offset instance (r1 has h + 2·halo rows, rim = [sy of the
+// shard's global rows, sx]); with row_off = halo = 0, h_glob = h it is the
+// pre-walk design of K2 over the whole image.  bf16 selects the bf16
+// horizontal lerp.
+int fb_update_matrices_rows(const float* r0, const float* r1, const float* flow, const float* rim,
+                            float* m, long long batch, int h, int w, int row_off, int halo,
+                            int h_glob, int bf16, void* stream) {
   const dim3 block(kThreadsX, kThreadsY);
   const dim3 grid((w + kThreadsX - 1) / kThreadsX, (h + kThreadsY - 1) / kThreadsY,
                   grid_z(batch));
-  const cudaStream_t s = (cudaStream_t)stream;
-  auto kernel = rows ? (bf16 ? update_matrices_kernel<true, true> : update_matrices_kernel<false, true>)
-                     : (bf16 ? update_matrices_kernel<true, false> : update_matrices_kernel<false, false>);
-  kernel<<<grid, block, 0, s>>>(r0, r1, flow, rim, m, batch, h, w, row_off, halo, h_glob);
+  auto kernel = bf16 ? update_matrices_rows_kernel<true> : update_matrices_rows_kernel<false>;
+  kernel<<<grid, block, 0, (cudaStream_t)stream>>>(r0, r1, flow, rim, m, batch, h, w, row_off,
+                                                   halo, h_glob);
   return (int)cudaGetLastError();
+}
+
+// K2's walk over the box [y_lo, y_hi) × [x_lo, x_hi) of the (h, w) level
+// (the whole level: 0, h, 0, w), runs of pairs_per_run pairs; M outside the
+// box is not written.  rim = [sy (h), sx (w)].
+int fb_update_matrices(const float* r0, const float* r1, const float* flow, const float* rim,
+                       float* m, long long batch, int h, int w, int y_lo, int y_hi, int x_lo,
+                       int x_hi, int pairs_per_run, int bf16, void* stream) {
+  if (batch < 1 || pairs_per_run < 1 || y_lo >= y_hi || x_lo >= x_hi)
+    return (int)cudaErrorInvalidValue;
+  const int n_tx = (x_hi - x_lo + kWalkW - 1) / kWalkW;
+  const long long n_tiles = (long long)((y_hi - y_lo + kWalkH - 1) / kWalkH) * n_tx;
+  const long long units = n_tiles * ((batch + pairs_per_run - 1) / pairs_per_run);
+  if (units > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  auto kernel = bf16 ? update_matrices_kernel<true> : update_matrices_kernel<false>;
+  kernel<<<(unsigned)units, kThreads, 0, (cudaStream_t)stream>>>(
+      r0, r1, flow, rim, m, batch, h, w, y_lo, y_hi, x_lo, x_hi, n_tx, (int)n_tiles,
+      pairs_per_run);
+  return (int)cudaGetLastError();
+}
+
+// Blocks of K2's walk that the card holds at once (blocks per SM × SMs):
+// the wrapper sizes the runs of pairs from it.
+int fb_update_matrices_resident(int bf16, int* out) {
+  auto kernel = bf16 ? update_matrices_kernel<true> : update_matrices_kernel<false>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  *out = per_sm * sms;
+  return 0;
 }
 
 // weights_host / weights_dev: [w (winsize), scale] on the host and the device.

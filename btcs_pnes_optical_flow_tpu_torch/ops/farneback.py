@@ -20,9 +20,10 @@ engine's layout so the two packages compare like with like.
 ROI dispatch (``roi_dispatch_params``, ``FarnebackParams.roi_active_px``)
 is the port of ``ops/farneback_fused.py``'s: a level whose ROI box,
 quantized to the ``TILE`` lattice, covers fewer tiles than the level
-assembles M over the box's tiles only (``update_matrices_tiles_cf``, K4)
-and solves the box only (``update_flow_cf`` in box mode); the flow
-outside the box keeps the level's initial flow.
+assembles M over the box only (``update_matrices_cf`` in box mode, the
+port of K2's ``active`` tile range) and solves the box only
+(``update_flow_cf`` in box mode); the flow outside the box keeps the
+level's initial flow.
 """
 
 from __future__ import annotations
@@ -44,9 +45,9 @@ from btcs_pnes_optical_flow_tpu_torch.ops import cvx, farneback_cuda
 # Rim damping applied to the normal equations near the image border
 # (5-pixel ramp; suppresses the unreliable constraints there).
 _BORDER_SCALE = (0.14, 0.14, 0.4472, 0.4472, 0.4472)
-# The port's tile lattice (rows, columns): the tiles K4 visits, one block of
-# one thread per pixel each (K2's block), and the grain to which ROI boxes
-# are quantized.
+# The port's tile lattice (rows, columns): the grain to which ROI boxes are
+# quantized, and the tiles of K4's lists (one block of one thread per pixel
+# each).
 TILE = (8, 32)
 
 
@@ -250,11 +251,20 @@ def update_matrices_rows_cf_plain(r0: torch.Tensor, r1: torch.Tensor, flow: torc
 
 
 def update_matrices_cf_plain(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
-                             precision: str = "fp32") -> torch.Tensor:
+                             precision: str = "fp32", box=None, out=None) -> torch.Tensor:
     """Normal equations from r0, r1 (B, 5, H, W) and flow (B, 2, H, W)
     with channels (dx, dy) → M (B, 5, H, W); the warp's horizontal lerp
-    in ``precision`` ("fp32" or "bf16", ``_lerp_x``)."""
-    return update_matrices_rows_cf_plain(r0, r1, flow, 0, r0.shape[2], precision)
+    in ``precision`` ("fp32" or "bf16", ``_lerp_x``).
+
+    With ``box=(y0, y1, x0, x1)`` (half-open) and ``out``: the same M
+    pasted into ``out`` at the box's pixels, in place; returns ``out``.
+    """
+    m = update_matrices_rows_cf_plain(r0, r1, flow, 0, r0.shape[2], precision)
+    if box is None:
+        return m
+    y0, y1, x0, x1 = box
+    out[:, :, y0:y1, x0:x1] = m[:, :, y0:y1, x0:x1]
+    return out
 
 
 def tile_mask(sel: torch.Tensor, b: int, h: int, w: int, tile) -> torch.Tensor:
@@ -464,9 +474,8 @@ def tile_list(n: int, tiles, hk: int, wk: int, device, tile=TILE) -> torch.Tenso
 def _kernel_steps(kernels: bool):
     if kernels:
         return (farneback_cuda.poly_exp_cf, farneback_cuda.update_matrices_cf,
-                farneback_cuda.update_flow_cf, farneback_cuda.update_matrices_tiles_cf)
-    return (poly_exp_cf_plain, update_matrices_cf_plain, update_flow_cf_plain,
-            update_matrices_tiles_cf_plain)
+                farneback_cuda.update_flow_cf)
+    return poly_exp_cf_plain, update_matrices_cf_plain, update_flow_cf_plain
 
 
 def _level_loop(polys_of_level, n: int, h: int, w: int, params: FarnebackParams,
@@ -476,11 +485,12 @@ def _level_loop(polys_of_level, n: int, h: int, w: int, params: FarnebackParams,
     polys_of_level(k, poly) -> (r0, r1): the (n, 5, hk, wk) expansions
     that level k's pairs warp from and to.  flow0: (n, H, W, 2) or None.
     Returns flow (n, H, W, 2).  A level that ``params.roi_active_px``
-    boxes runs K4 and K3 over its box only; outside the box the flow keeps
-    the level's initial flow.
+    boxes runs K2 and K3 over its box only, as the JAX level loop runs
+    them over an ``active`` tile range; outside the box the flow keeps the
+    level's initial flow.
     """
     check_supported(params)
-    poly, um, uf, um_tiles = _kernel_steps(kernels)
+    poly, um, uf = _kernel_steps(kernels)
     prec = params.warp_precision
     flow = None
     for k in range(params.num_levels(h, w), -1, -1):
@@ -505,13 +515,13 @@ def _level_loop(polys_of_level, n: int, h: int, w: int, params: FarnebackParams,
                 flow = uf(m, params.winsize, params.gaussian_win)
             continue
         box = tile_box(tiles, hk, wk)
-        sel = tile_list(n, tiles, hk, wk, device)
-        # One M per level: K4 rewrites the box's tiles each iteration; K3 in
-        # box mode reads only those and writes the box of flow in place.
+        # One M per level: K2 in box mode rewrites the box each iteration;
+        # K3 in box mode reads only the box and writes the box of flow in
+        # place.
         m = torch.empty((n, 5, hk, wk), dtype=torch.float32, device=device)
         flow = flow.contiguous()
         for _ in range(params.iters_at(k)):
-            um_tiles(r0, r1, flow, sel, m, TILE, prec)
+            um(r0, r1, flow, prec, box, m)
             uf(m, params.winsize, params.gaussian_win, box, flow)
     return flow.movedim(1, -1)
 

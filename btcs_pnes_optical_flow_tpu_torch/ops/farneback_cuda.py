@@ -4,16 +4,20 @@ Port of ``btcs_pnes_optical_flow_tpu/ops/farneback_pallas.py``'s four
 Farnebäck kernels:
 
 - ``poly_exp_cf``              ← ``poly_exp_fused_cf`` (K1);
-- ``update_matrices_cf``       ← ``update_matrices_banded_cf`` (K2);
+- ``update_matrices_cf``       ← ``update_matrices_banded_cf`` (K2), with
+  its ``active`` tile range as a box mode for ROI dispatch;
 - ``update_flow_cf``           ← ``update_flow_fused_cf`` (K3), with a box
   mode for ROI dispatch;
-- ``update_matrices_tiles_cf`` ← ``update_matrices_banded_tiles_cf`` (K4);
+- ``update_matrices_tiles_cf`` ← ``update_matrices_banded_tiles_cf`` (K4),
+  which no path of the port runs (JAX runs it for follow-up passes only);
 - ``update_matrices_rows_cf``  ← K2 on a height shard, the kernel of
   ``parallel/spatial.py`` (JAX ``spatial.py _update_matrices_sharded``).
 
 K2 and K4 take ``precision`` ("fp32" or the TPU kernel's "bf16"
 horizontal lerp); the bf16 instances count their launches apart
-(``update_matrices_bf16``, ``update_matrices_tiles_bf16``).
+(``update_matrices_bf16``, ``update_matrices_tiles_bf16``), and K2's box
+launches count a second time under ``update_matrices_box`` /
+``update_matrices_box_bf16``.
 
 Each wrapper takes the plain PyTorch version of ``ops/farneback.py`` for
 a tensor on the CPU.  For a CUDA tensor it checks device, dtype, shape
@@ -36,12 +40,22 @@ from btcs_pnes_optical_flow_tpu_torch.ops import farneback as _plain
 
 LAUNCHES = {"poly_exp": 0, "update_matrices": 0, "update_flow": 0, "update_matrices_tiles": 0,
             "update_matrices_bf16": 0, "update_matrices_tiles_bf16": 0,
-            "update_matrices_rows": 0}
+            "update_matrices_rows": 0, "update_matrices_box": 0, "update_matrices_box_bf16": 0}
 # Shared memory one block may use on sm_90 (232,448 bytes).
 _MAX_SMEM = 232448
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+# K2's walk (csrc/farneback.cu update_matrices_kernel): one block per tile
+# of this many (rows, columns), walking a run of consecutive pairs.
+WALK_TILE = (8, 32)
+# The walk's grid aims at this many times the blocks that the card holds at
+# once: the last wave is then a small share of the launch, and the runs stay
+# as long as that allows (a run's first pair reads its r0 frame once more).
+# On an H100 (scripts/k2_walk_variants.py), 16 ran the 1080p level-0 box
+# and 480p's whole level in 1.9-3.3% less time than 8 and within 1% of 32;
+# 8 ran the 1080p level-2 box 5% faster.
+WALK_WAVES = 16
 
 
 def reset_launch_counts() -> None:
@@ -55,7 +69,9 @@ def library():
     lib = _build.load("farneback.cu").lib
     sigs = {
         "fb_poly_exp": [_P, _P, _P, _P, _LL, _I, _I, _I, _P],
-        "fb_update_matrices": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _P],
+        "fb_update_matrices": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        "fb_update_matrices_rows": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P],
+        "fb_update_matrices_resident": [_I, ctypes.POINTER(_I)],
         "fb_update_flow": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P],
         "fb_update_matrices_tiles": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
         "fb_poly_exp_smem_bytes": [_I],
@@ -147,34 +163,96 @@ def _bf16(precision: str) -> int:
     return int(precision == "bf16")
 
 
-def _matrices(r0, r1, flow, row_off: int, halo: int, h_glob: int, precision: str, key: str):
-    """Launch K2 (key "update_matrices…", halo 0) or its row-offset instance
-    (key "update_matrices_rows") on CUDA tensors; r1 has h + 2·halo rows."""
+def _level_box(box, h: int, w: int):
+    """A box (y0, y1, x0, x1), half-open, as host ints; raises when it is
+    empty or leaves the (h, w) level."""
+    y0, y1, x0, x1 = (int(v) for v in box)
+    if not (0 <= y0 < y1 <= h and 0 <= x0 < x1 <= w):
+        raise ValueError(f"box {tuple(box)} is empty or outside the {h}x{w} level")
+    return y0, y1, x0, x1
+
+
+def _check_planes(r0, r1, flow, h_ext: int) -> None:
     b, _, h, w = r0.shape
     _check(r0, "r0", (b, 5, h, w))
-    _check(r1, "r1", (b, 5, h + 2 * halo, w))
+    _check(r1, "r1", (b, 5, h_ext, w))
     _check(flow, "flow", (b, 2, h, w))
     if r1.device != r0.device or flow.device != r0.device:
         raise ValueError("r0, r1 and flow must be on one device")
-    out = torch.empty((b, 5, h, w), dtype=torch.float32, device=r0.device)
-    if b and h:
-        rim = _rim_rows(h, w, row_off, h_glob, r0.device)
-        LAUNCHES[key] += 1
-        _launch(r0.device, library().fb_update_matrices, r0.data_ptr(), r1.data_ptr(),
-                flow.data_ptr(), rim.data_ptr(), out.data_ptr(), b, h, w, row_off, halo, h_glob,
-                int(key == "update_matrices_rows"), _bf16(precision))
-    return out
+
+
+def pairs_per_run(n_tiles: int, batch: int, resident: int) -> int:
+    """Pairs that each block of K2's walk takes in turn: runs of equal
+    length (the last one shorter), as long as they can be while the grid
+    (n_tiles × runs blocks) still reaches WALK_WAVES times the
+    ``resident`` blocks that the card holds at once."""
+    runs = min(batch, max(1, -(-WALK_WAVES * resident // n_tiles)))
+    return max(1, batch // runs)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(device: torch.device, bf16: int) -> int:
+    """Blocks of K2's walk that the card holds at once."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = library().fb_update_matrices_resident(bf16, ctypes.byref(out))
+    if err:
+        raise RuntimeError(f"fb_update_matrices_resident failed: CUDA error {err} "
+                           f"({library().fb_error_string(err).decode()})")
+    return out.value
+
+
+def _walk(r0, r1, flow, precision: str, box, out, boxed: bool, pairs=None) -> None:
+    """Launch K2's walk on CUDA tensors over ``box`` (half-open host ints)
+    into ``out`` in runs of ``pairs`` pairs (default: ``pairs_per_run`` of
+    the launch); ``boxed`` counts the launch as a box launch too."""
+    bf16 = _bf16(precision)
+    b, _, h, w = r0.shape
+    y0, y1, x0, x1 = box
+    if pairs is None:
+        th, tw = WALK_TILE
+        n_tiles = -(-(y1 - y0) // th) * -(-(x1 - x0) // tw)
+        pairs = pairs_per_run(n_tiles, b, _resident(r0.device, bf16))
+    rim = _rim_rows(h, w, 0, h, r0.device)
+    LAUNCHES["update_matrices_bf16" if bf16 else "update_matrices"] += 1
+    if boxed:
+        LAUNCHES["update_matrices_box_bf16" if bf16 else "update_matrices_box"] += 1
+    _launch(r0.device, library().fb_update_matrices, r0.data_ptr(), r1.data_ptr(),
+            flow.data_ptr(), rim.data_ptr(), out.data_ptr(), b, h, w, y0, y1, x0, x1,
+            int(pairs), bf16)
 
 
 def update_matrices_cf(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
-                       precision: str = "fp32") -> torch.Tensor:
+                       precision: str = "fp32", box=None, out=None) -> torch.Tensor:
     """K2: r0, r1 (B, 5, H, W), flow (B, 2, H, W) → M (B, 5, H, W); the
-    warp's horizontal lerp in ``precision``."""
-    bf16 = _bf16(precision)
+    warp's horizontal lerp in ``precision``.
+
+    Box mode (``box=(y0, y1, x0, x1)``, half-open, with ``out`` the level's
+    M (B, 5, H, W)), the port of the TPU kernel's ``active`` tile range:
+    M at the box's pixels is written into ``out`` in place and returned;
+    the rest of ``out`` is left as it was.  r0, r1 and flow stay whole:
+    the warp samples r1 anywhere in the level.
+    """
+    _bf16(precision)
+    if (box is None) != (out is None):
+        raise ValueError("box and out go together")
+    b, _, h, w = r0.shape
+    if box is not None:
+        box = _level_box(box, h, w)
     if r0.device.type == "cpu":
-        return _plain.update_matrices_cf_plain(r0, r1, flow, precision)
-    key = "update_matrices_bf16" if bf16 else "update_matrices"
-    return _matrices(r0, r1, flow, 0, 0, r0.shape[2], precision, key)
+        return _plain.update_matrices_cf_plain(r0, r1, flow, precision, box, out)
+    _check_planes(r0, r1, flow, h)
+    boxed = out is not None
+    if boxed:
+        _check(out, "out", (b, 5, h, w))
+        if out.device != r0.device:
+            raise ValueError("r0 and out must be on one device")
+    else:
+        box = (0, h, 0, w)
+        out = torch.empty((b, 5, h, w), dtype=torch.float32, device=r0.device)
+    if b and h and w:
+        _walk(r0, r1, flow, precision, box, out, boxed)
+    return out
 
 
 def update_matrices_rows_cf(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
@@ -182,8 +260,9 @@ def update_matrices_rows_cf(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tens
     """K2's row-offset instance: M of the rows [row_off, row_off + h) of an
     image of ``h_glob`` rows from r0, flow (B, ·, h, W) and r1 (B, 5, h +
     2K, W), the shard's rows with K rows of halo on each side
-    (``update_matrices_rows_cf_plain``)."""
-    _bf16(precision)
+    (``update_matrices_rows_cf_plain``).  At row_off = K = 0, h_glob = h it
+    is K2's pre-walk design over the whole image."""
+    bf16 = _bf16(precision)
     h = r0.shape[2]
     h_ext = r1.shape[2]
     if (h_ext - h) % 2 or h_ext < h:
@@ -192,8 +271,16 @@ def update_matrices_rows_cf(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tens
         raise ValueError(f"rows [{row_off}, {row_off + h}) lie outside the image's {h_glob}")
     if r0.device.type == "cpu":
         return _plain.update_matrices_rows_cf_plain(r0, r1, flow, row_off, h_glob, precision)
-    return _matrices(r0, r1, flow, int(row_off), (h_ext - h) // 2, int(h_glob), precision,
-                     "update_matrices_rows")
+    _check_planes(r0, r1, flow, h_ext)
+    b, _, h, w = r0.shape
+    out = torch.empty((b, 5, h, w), dtype=torch.float32, device=r0.device)
+    if b and h:
+        rim = _rim_rows(h, w, int(row_off), int(h_glob), r0.device)
+        LAUNCHES["update_matrices_rows"] += 1
+        _launch(r0.device, library().fb_update_matrices_rows, r0.data_ptr(), r1.data_ptr(),
+                flow.data_ptr(), rim.data_ptr(), out.data_ptr(), b, h, w, int(row_off),
+                (h_ext - h) // 2, int(h_glob), bf16)
+    return out
 
 
 def update_flow_cf(m: torch.Tensor, winsize: int, gaussian_win: bool,
@@ -208,9 +295,7 @@ def update_flow_cf(m: torch.Tensor, winsize: int, gaussian_win: bool,
         raise ValueError("box and out go together")
     b, _, h, w = m.shape
     if box is not None:
-        y0, y1, x0, x1 = (int(v) for v in box)
-        if not (0 <= y0 < y1 <= h and 0 <= x0 < x1 <= w):
-            raise ValueError(f"box {box} is empty or outside the {h}x{w} level")
+        y0, y1, x0, x1 = box = _level_box(box, h, w)
     if m.device.type == "cpu":
         return _plain.update_flow_cf_plain(m, winsize, gaussian_win, box, out)
     _check(m, "m", (b, 5, h, w))

@@ -13,13 +13,15 @@ Phases (any failed check raises, so the exit code is non-zero):
              versions, the TF32 flags (both set False);
 2. build   — nvcc builds csrc/farneback.cu and csrc/tvl1.cu for sm_90a
              in parallel (build/kernels/), with ptxas' register report;
-3. kernels — K1 poly_exp, K2 update_matrices, K3 update_flow and K4
-             update_matrices_tiles (over the bench ROI's level-0 box and over
-             a seeded random half of all tiles) against their plain PyTorch
-             versions on bench frames at 480×640, B = 8, with CUDA-event
-             medians of both; K3's box mode against its plain version; then
-             (3b) K1, K2, K4 over the ROI box's tiles and K3 (full frame and
-             box mode) at the main path's shape, one 257-frame chunk at
+3. kernels — K1 poly_exp, K2 update_matrices (whole level, and in box
+             mode over the bench ROI's level-0 box), K3 update_flow and K4
+             update_matrices_tiles (over that box's tiles and over a seeded
+             random half of all tiles) against their plain PyTorch versions
+             on bench frames at 480×640, B = 8, with CUDA-event medians of
+             both; K3's box mode against its plain version; then (3b) K1, K2
+             (whole, beside the pre-walk K2 on the same tensors), K4 over the
+             ROI box's tiles and K2's box mode (beside K4) and K3 (full frame
+             and box mode) at the main path's shape, one 257-frame chunk at
              level 0, with K1's one-call yardstick (F.conv2d with the five
              folded 11×11 filters);
 4. slice   — the bench clip's 512 pairs as two 257-frame chunks through
@@ -65,8 +67,8 @@ Phases (any failed check raises, so the exit code is non-zero):
              ("assoc") on 18000 samples against the full signal;
 12. bench config — run_full on the 513-frame clip under the JAX bench's flow
              config (bench.py:150-155: the bf16 warp, iteration schedule
-             (3, 3, 2, 1)): launches of K2's and K4's bf16 instances against
-             the ROI-box schedule, the flow's EPE in the ROI against the fp32
+             (3, 3, 2, 1)): launches of K2's bf16 instance (box mode on the
+             boxed levels) against the ROI-box schedule, the flow's EPE in the ROI against the fp32
              flow of phase 4's pairs (mean < 0.05 px), PC1 against phase 8's
              (corr ≥ 0.999), ROI-frames/s;
 13. sharded — farneback_flow_sharded on 16 pairs at 480×640 over 4 shards
@@ -82,23 +84,29 @@ Phases (any failed check raises, so the exit code is non-zero):
              a rendered 129-frame clip played forward and back) through
              run_full under the JAX bench's flow config, its 1080p ROI and
              chunks of 64 pairs: the launches of one chunk through
-             run_flow_stage against the schedule (4 K1, 8 K4 bf16, 1 K2 bf16,
-             9 K3); (15a) at each level of one 64-pair chunk K1, K2 bf16 and
-             K3 (whole), K4 bf16 (the level's box tiles) and K3 (box mode)
-             bit-equal to their plain versions, each launch then timed at its
-             level and each kernel's launches of the chunk back to back beside
-             their bound, and the same checks at level 0 of a 256-pair chunk;
-             (15b) on the first chunk ROI against full-frame features, kernel
-             against plain path, bf16 against fp32 flow EPE in the ROI; (15c)
+             run_flow_stage against the schedule (4 K1, 9 K2 bf16 of which 8
+             in box mode, 9 K3, no K4); (15a) at each level of one 64-pair
+             chunk K1, K2 bf16 whole and the pre-walk K2, K2 bf16 in box mode
+             and K4 bf16 over the box's tiles (boxed levels), K3 (whole and
+             box mode) bit-equal to their plain versions, each launch then
+             timed at its level (K2 against its earlier design in turns) and
+             the chunk's launches back to back beside their bound, and the
+             same at level 0 of a 256-pair chunk; (15b) on the first chunk
+             ROI against full-frame features, kernel against plain path, bf16
+             against fp32 flow EPE in the ROI, and the plain path's features
+             through run_flow_stage; (15c)
              run_flow_stage over 2 minutes at chunks of 32/64/128/256 pairs:
              frames/s, peak device memory, launches against the schedule;
              (15d) the 10-minute run_full with a checkpoint store: frames/s,
-             stage seconds, peak device memory and host RSS (sampled);
+             stage seconds, peak device memory and host RSS (sampled), its
+             first chunk array_equal to 15b's plain path;
              (15e) a run killed by a decode error 40% in and a recording cut
              inside a chunk, each resumed over the whole recording and equal
              to 15d's features, the chunks recomputed counted by K1's
              launches; (15f) pc1_streaming against run_pc1_stage; (15g) a
-             profile of two chunks with the device's idle gaps.
+             profile of two chunks with the device's idle gaps, and the host
+             syncs per chunk and the two chunks' time against the level loop
+             with its boxed levels on K4's list form.
 Phase 3 and 3b also hold K2's and K4's bf16 instances and K2's row-offset
 instance against their plain versions; phase 9 runs run_cohort over a mesh
 of every card present and, with one card, over a 4-shard cuda:0 layout
@@ -117,6 +125,7 @@ second-to-last line is the kernels JSON, the last line {"ok": true,
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import dataclasses
 import functools
@@ -162,24 +171,35 @@ SHARD_TOL_PX = 1e-4  # tests/test_spatial.py's sharded-vs-unsharded bar
 KERNELS = (
     ("poly_exp", "K1", f"{PALLAS}:1542", 0.0,
      "bit-equal: the plain fp32 tap sums in their order, without FMA contraction"),
-    ("update_matrices", "K2", f"{PALLAS}:566", 1e-5,
-     "the plain guard and fp32 operations in their order, without FMA contraction"),
+    ("update_matrices", "K2", f"{PALLAS}:566", 0.0,
+     "bit-equal: the plain guard and fp32 operations in their order, without FMA contraction"),
     ("update_flow", "K3", f"{PALLAS}:1802", 0.0,
      "bit-equal: the plain window sums in their order, then the same solve"),
     ("update_matrices_tiles", "K4", f"{PALLAS}:1040", 0.0,
      "bit-equal: K2's device function, the plain version's operations in their order"),
     # warp_precision="bf16": the TPU kernel's bf16 candidate MAC
     # (farneback_pallas.py:313, 470-471, 486-487, 520-532).
-    ("update_matrices_bf16", "K2 bf16", f"{PALLAS}:566", 1e-5,
-     "K2's bar: the plain bf16 lerp (each bf16 step rounded to nearest even) and fp32 "
+    ("update_matrices_bf16", "K2 bf16", f"{PALLAS}:566", 0.0,
+     "bit-equal: the plain bf16 lerp (each bf16 step rounded to nearest even) and fp32 "
      "operations in their order, without FMA contraction"),
+    # K2's box mode: the TPU kernel's `active` tile range
+    # (farneback_pallas.py:566, 612-624), a boxed level of ROI dispatch.
+    ("update_matrices_box", "K2 box", f"{PALLAS}:566", 0.0,
+     "bit-equal: K2's device function over the box, M outside it untouched"),
+    ("update_matrices_box_bf16", "K2 box bf16", f"{PALLAS}:566", 0.0,
+     "bit-equal: K2's bf16 device function over the box, M outside it untouched"),
     ("update_matrices_tiles_bf16", "K4 bf16", f"{PALLAS}:1040", 0.0,
      "bit-equal: K2's bf16 device function, the plain version's operations in their order"),
     # K2 on a height shard: parallel/spatial.py's warp and assembly.
-    ("update_matrices_rows", "K2 rows", f"{SPATIAL}:103", 1e-5,
-     "K2's bar: K2's device function with global rows and a halo band, the plain guard and "
+    ("update_matrices_rows", "K2 rows", f"{SPATIAL}:103", 0.0,
+     "bit-equal: K2's device function with global rows and a halo band, the plain guard and "
      "fp32 operations in their order"),
 )
+# K2's earlier designs, timed beside it on the same tensors: the whole level
+# before the walk (the row-offset instance at offset 0), and a boxed level
+# before the box mode (K4 over the box's tile list).
+PREWALK = "pre-walk K2: update_matrices_rows_cf at row_off 0, no halo"
+K4_LIST = "K4 over the box's tile list"
 FLOW_TOL_PX = 1e-3  # the JAX package's fused-vs-exact 480p bar
 MAIN_REPS = 10  # CUDA-event repetitions per round at the main path's shape
 # One H100 SXM (NVIDIA's data sheet): HBM bytes/s and float32 operations/s
@@ -348,6 +368,18 @@ def phase_kernels(clip, params, device):
 
     calls["update_matrices_tiles"] = k4_calls("ROI box")
     calls["update_matrices_tiles_bf16"] = k4_calls("ROI box", "bf16")
+    # K2's box mode over the same box (its pixels: the level loop's box),
+    # into the same zero-flow M.
+    box_px = fb.tile_box(tiles0, h, w)
+    box_bufs = {}
+
+    def box_calls(precision):
+        mk, mp = box_bufs.setdefault(precision, (base.clone(), base.clone()))
+        return (lambda: fc.update_matrices_cf(r0, r1, flow_cf, precision, box_px, mk),
+                lambda: fb.update_matrices_cf_plain(r0, r1, flow_cf, precision, box_px, mp))
+
+    calls["update_matrices_box"] = box_calls("fp32")
+    calls["update_matrices_box_bf16"] = box_calls("bf16")
     calls["update_matrices_bf16"] = (lambda: fc.update_matrices_cf(r0, r1, flow_cf, "bf16"),
                                      lambda: fb.update_matrices_cf_plain(r0, r1, flow_cf, "bf16"))
     # K2 rows over the 4 row blocks of these pairs with the sharded path's band.
@@ -369,6 +401,14 @@ def phase_kernels(clip, params, device):
             if not torch.equal(buf[~listed], base[~listed]):
                 raise AssertionError(f"K4 {prec} ({key}) wrote outside its listed tiles")
     print(f"K4: unlisted tiles bitwise unchanged for {sorted(k4_bufs)}")
+    y0, y1, x0, x1 = box_px
+    inside = torch.zeros_like(base, dtype=torch.bool)
+    inside[:, :, y0:y1, x0:x1] = True
+    for prec, bufs in box_bufs.items():
+        for buf in bufs:
+            if not torch.equal(buf[~inside], base[~inside]):
+                raise AssertionError(f"K2 box mode ({prec}) wrote outside its box {box_px}")
+    print(f"K2 box mode {box_px}: M outside the box bitwise unchanged for {sorted(box_bufs)}")
 
     px = CHECK_PAIRS * h * w
     n_listed = int(fb.tile_mask(lists["ROI box"], CHECK_PAIRS, h, w, fb.TILE).sum())
@@ -384,6 +424,11 @@ def phase_kernels(clip, params, device):
                NO_LIBRARY["update_matrices"])
     _set_bound(rows["update_matrices_tiles_bf16"], n_listed, *_k2_cost(CHECK_PAIRS, "bf16"), None,
                NO_LIBRARY["update_matrices_tiles"])
+    n_box = CHECK_PAIRS * (y1 - y0) * (x1 - x0)
+    _set_bound(rows["update_matrices_box"], n_box, *_k2_cost(CHECK_PAIRS), None,
+               NO_LIBRARY["update_matrices_box"])
+    _set_bound(rows["update_matrices_box_bf16"], n_box, *_k2_cost(CHECK_PAIRS, "bf16"), None,
+               NO_LIBRARY["update_matrices_box"])
     _set_bound(rows["update_matrices_rows"], px, *_k2_rows_cost(h_loc, k_rows), None,
                NO_LIBRARY["update_matrices"])
 
@@ -503,6 +548,7 @@ NO_LIBRARY = {
                        "normal-equation assembly",
     "update_flow": "no single PyTorch call does the window average and the 2x2 solve",
     "update_matrices_tiles": "no single PyTorch call does K2's warp and assembly over a tile list",
+    "update_matrices_box": "no single PyTorch call does K2's warp and assembly over a box, in place",
     "pd_chain": "no single PyTorch call runs the primal-dual chain",
 }
 
@@ -578,7 +624,8 @@ def phase_kernels_main(clip, params, device, rows, box):
     b8 = rows[name]
     row = _check_and_time(name, kid, SOURCE, replaces, lambda: fc.update_matrices_cf(r0, r1, flow),
                           lambda: fb.update_matrices_cf_plain(r0, r1, flow), rtol=rtol,
-                          abs_tol=None, why=why, reps=MAIN_REPS)
+                          abs_tol=None, why=why, reps=MAIN_REPS,
+                          old=(PREWALK, lambda: fc.update_matrices_rows_cf(r0, r1, flow, 0, h)))
     row.update(b8_ms=b8["ms"], b8_plain_ms=b8["plain_ms"],
                max_abs_err=max(row["max_abs_err"], b8["max_abs_err"]))
     rows[name] = row
@@ -588,7 +635,9 @@ def phase_kernels_main(clip, params, device, rows, box):
     row = _check_and_time(name, kid, SOURCE, replaces,
                           lambda: fc.update_matrices_cf(r0, r1, flow, "bf16"),
                           lambda: fb.update_matrices_cf_plain(r0, r1, flow, "bf16"), rtol=rtol,
-                          abs_tol=None, why=why, reps=MAIN_REPS)
+                          abs_tol=None, why=why, reps=MAIN_REPS,
+                          old=(PREWALK, lambda: fc.update_matrices_rows_cf(r0, r1, flow, 0, h,
+                                                                           "bf16")))
     row.update(b8_ms=b8["ms"], b8_plain_ms=b8["plain_ms"],
                max_abs_err=max(row["max_abs_err"], b8["max_abs_err"]))
     rows[name] = row
@@ -649,8 +698,9 @@ def _rows_main(clip, params, rows, device):
 
 
 def _k4_main(rows, params, poly, flow, m, h, w, device, precision="fp32"):
-    """K4 at the main path's shape: the 256 pairs of one chunk over the tiles
-    of the bench ROI's level-0 box, into the chunk's level-0 M."""
+    """K4 and K2's box mode at the main path's shape: the 256 pairs of one
+    chunk over the bench ROI's level-0 box (K4: its tile list), into the
+    chunk's level-0 M."""
     from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
     from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
 
@@ -675,7 +725,25 @@ def _k4_main(rows, params, poly, flow, m, h, w, device, precision="fp32"):
     print(f"{kid} at the main path's shape: {sel.numel()} tiles of {fb.TILE} ({n_listed} px; "
           f"the wrapper's time includes its one read-back of sel's range)")
     _set_bound(row, n_listed, *_k2_cost(b, precision), None, NO_LIBRARY["update_matrices_tiles"])
-    del mk, mp
+    # K2's box mode over the same box, where the level loop now runs it,
+    # against K4's list form of the box (old, new, new, old).
+    box = fb.tile_box(tiles0, h, w)
+    key = "update_matrices_box" + ("_bf16" if precision == "bf16" else "")
+    name, kid, replaces, rtol, why = next(k for k in KERNELS if k[0] == key)
+    b8 = rows[name]
+    kb, pb, ob = m.clone(), m.clone(), m.clone()
+    row = _check_and_time(
+        name, kid, SOURCE, replaces,
+        lambda: fc.update_matrices_cf(r0, r1, flow, precision, box, kb),
+        lambda: fb.update_matrices_cf_plain(r0, r1, flow, precision, box, pb),
+        rtol=rtol, abs_tol=None, why=why + f"; {b} pairs, ROI box {box}", reps=MAIN_REPS,
+        old=(K4_LIST, lambda: fc.update_matrices_tiles_cf(r0, r1, flow, sel, ob, fb.TILE,
+                                                          precision)))
+    row.update(b8_ms=b8["ms"], b8_plain_ms=b8["plain_ms"],
+               max_abs_err=max(row["max_abs_err"], b8["max_abs_err"]))
+    rows[name] = row
+    _set_bound(row, n_listed, *_k2_cost(b, precision), None, NO_LIBRARY["update_matrices_box"])
+    del mk, mp, kb, pb, ob
 
 
 def roi_mask(h, w):
@@ -685,10 +753,13 @@ def roi_mask(h, w):
 
 
 def _check_and_time(name, kid, source, replaces, kern_fn, plain_fn, rtol, abs_tol, why,
-                    reps=REPS):
+                    reps=REPS, old=None):
     """Hold one kernel against its plain version (raise past the bar: abs_tol
     when given, else rtol × max|plain|), then time both with CUDA events;
-    returns the kernel's JSON row.  A tuple output is compared stacked."""
+    returns the kernel's JSON row.  A tuple output is compared stacked.
+    old = (label, fn): the kernel's earlier design on the same tensors, held
+    to the plain version at the same bar and timed in turns with the kernel
+    (old, new, new, old) inside the same rounds (the row's old_ms)."""
 
     def result(fn):
         out = fn()
@@ -702,13 +773,24 @@ def _check_and_time(name, kid, source, replaces, kern_fn, plain_fn, rtol, abs_to
         raise AssertionError(f"{name}: non-finite kernel output")
     ok = abs_err <= abs_tol if abs_tol is not None else rel <= rtol
     bar = f"{abs_tol} px abs" if abs_tol is not None else f"{rtol} x max|plain|"
+    old_ok = True
+    if old is not None:
+        old_rel, old_abs = _rel_err(result(old[1]), plain)
+        old_ok = old_abs <= abs_tol if abs_tol is not None else old_rel <= rtol
+    del kern, plain
     for _ in range(3):
         kern_fn(), plain_fn()
-    ms_k, ms_p = [], []
-    for _ in range(2):  # plain, kernel, kernel, plain
+        if old is not None:
+            old[1]()
+    ms_k, ms_p, ms_o = [], [], []
+    for _ in range(2):  # plain, (old,) kernel, kernel, (old,) plain
         ms_p.append(_median_ms(plain_fn, reps))
+        if old is not None:
+            ms_o.append(_median_ms(old[1], reps))
         ms_k.append(_median_ms(kern_fn, reps))
         ms_k.append(_median_ms(kern_fn, reps))
+        if old is not None:
+            ms_o.append(_median_ms(old[1], reps))
         ms_p.append(_median_ms(plain_fn, reps))
     row = dict(name=name, route="cuda", source=source, replaces=replaces,
                launches=0, max_abs_err=abs_err,
@@ -716,7 +798,12 @@ def _check_and_time(name, kid, source, replaces, kern_fn, plain_fn, rtol, abs_to
     print(f"{kid} {name}: max_abs_err {abs_err:.3e} rel {rel:.3e} (tol {bar}: {why}) "
           f"{'ok' if ok else 'FAIL'}; kernel {row['ms']:.4f} ms "
           f"plain {row['plain_ms']:.4f} ms (median of {reps}, 4 rounds)")
-    if not ok:
+    if old is not None:
+        row.update(old_ms=statistics.median(ms_o), old_design=old[0], old_max_abs_err=old_abs)
+        print(f"  earlier design ({old[0]}) on the same tensors: {row['old_ms']:.4f} ms, "
+              f"max_abs_err {old_abs:.3e} {'ok' if old_ok else 'FAIL'}; new/old "
+              f"{row['ms'] / row['old_ms']:.3f}")
+    if not ok or not old_ok:
         raise AssertionError(f"{name} disagrees with its plain version")
     return row
 
@@ -818,8 +905,8 @@ def phase_slice(clip, params, device, smi, rows, flow_plain):
 
 def _launch_schedule(params, h, w, n_chunks):
     """Launches per kernel that run_flow_stage makes over n_chunks chunks,
-    derived from the ROI boxes: a boxed level runs K4 in place of K2, each in
-    the instance of params.warp_precision."""
+    derived from the ROI boxes: K2 in the instance of params.warp_precision
+    at every level, counted again as a box launch on a boxed level; no K4."""
     from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
     from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
 
@@ -829,7 +916,9 @@ def _launch_schedule(params, h, w, n_chunks):
         boxed = fb.box_tiles(params.roi_active_px[k], *params.level_size(h, w, k)) is not None
         it = params.iters_at(k)
         want["poly_exp"] += n_chunks
-        want[("update_matrices_tiles" if boxed else "update_matrices") + suffix] += it * n_chunks
+        want["update_matrices" + suffix] += it * n_chunks
+        if boxed:
+            want["update_matrices_box" + suffix] += it * n_chunks
         want["update_flow"] += it * n_chunks
     return want
 
@@ -870,9 +959,10 @@ def phase_pipeline(clip, device, smi, rows, full_feats):
     e2e = time.perf_counter() - t0
     launches = dict(fc.LAUNCHES)
     print(f"launches over {n_chunks} chunks: {launches} (expected from the boxes {want})")
-    if launches != want or not launches["update_matrices_tiles"]:
+    if launches != want or not launches["update_matrices_box"]:
         raise AssertionError("pipeline launches differ from the ROI-box schedule")
-    rows["update_matrices_tiles"]["launches"] = launches["update_matrices_tiles"]
+    rows["update_matrices_box"]["launches"] = launches["update_matrices_box"]
+    rows["update_matrices_tiles"]["launches"] = launches["update_matrices_tiles"]  # 0: off the path
 
     if flow.vx.shape != (n, 1) or not np.isnan(flow.vx[0, 0]):
         raise AssertionError(f"flow features {flow.vx.shape}, row 0 {flow.vx[0]}")
@@ -1218,10 +1308,10 @@ def phase_bench_config(clip, device, smi, rows, pc1_fp32):
     launches = dict(fc.LAUNCHES)
     print(f"launches: {launches} (expected from the boxes {want})")
     if (launches != want or not launches["update_matrices_bf16"]
-            or not launches["update_matrices_tiles_bf16"]):
+            or not launches["update_matrices_box_bf16"]):
         raise AssertionError("the bench config's launches differ from its ROI-box schedule")
-    rows["update_matrices_bf16"]["launches"] = launches["update_matrices_bf16"]
-    rows["update_matrices_tiles_bf16"]["launches"] = launches["update_matrices_tiles_bf16"]
+    for name in ("update_matrices_bf16", "update_matrices_box_bf16", "update_matrices_tiles_bf16"):
+        rows[name]["launches"] = launches[name]
 
     fin = np.isfinite(pc1_fp32[:, 0]) & np.isfinite(pc1[:, 0])
     corr = float(np.corrcoef(pc1[fin, 0], pc1_fp32[fin, 0])[0, 1])
@@ -1402,11 +1492,12 @@ def phase_metric_head(device, smi, cohort_t, cohort_pc1):
               f"({med['row loop'] / med['batched']:.1f}×) on [{smi}]")
 
 
-def phase_profile(title, run, host_top=0, gaps=False):
+def phase_profile(title, run, host_top=0, gaps=False, counts=None):
     """Device time by kernel over ``run`` (torch.profiler); with host_top,
     also the host operators with the most self time; with gaps, the
-    device's idle gaps between kernels.  Returns the total device time in
-    ms, or None where the profiler recorded none."""
+    device's idle gaps between kernels; with counts (a dict of event names),
+    the number of each named host event into it.  Returns the total device
+    time in ms, or None where the profiler recorded none."""
     from torch.profiler import ProfilerActivity, profile
 
     print(title)
@@ -1418,6 +1509,9 @@ def phase_profile(title, run, host_top=0, gaps=False):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     cuda = torch.autograd.DeviceType.CUDA
+    if counts is not None:
+        for key in counts:
+            counts[key] = sum(e.count for e in prof.key_averages() if e.key == key)
     events = [e for e in prof.key_averages() if getattr(e, "device_type", None) == cuda]
     total = sum(dev_us(e) for e in events)
     if not total:
@@ -1723,11 +1817,11 @@ def phase_hd(device, smi, rows):
         print(f"level {k} {hk}x{wk}: box {box}, tiles {tiles} covering {cover} "
               f"({100 * share:.0f}% of the level), {it} iterations")
     per_chunk = _launch_schedule(p, h, w, 1)
-    want = dict(dict.fromkeys(fc.LAUNCHES, 0), poly_exp=4, update_matrices_tiles_bf16=8,
-                update_matrices_bf16=1, update_flow=9)
+    want = dict(dict.fromkeys(fc.LAUNCHES, 0), poly_exp=4, update_matrices_bf16=9,
+                update_matrices_box_bf16=8, update_flow=9)
     print(f"launches per {HD_CHUNK}-pair chunk: {per_chunk}")
     if per_chunk != want:
-        raise AssertionError(f"the 1080p schedule is not 4 K1 / 8 K4 / 1 K2 / 9 K3: {want}")
+        raise AssertionError(f"the 1080p schedule is not 4 K1 / 9 K2 bf16 (8 box) / 9 K3: {want}")
     fc.reset_launch_counts()
     run_flow_stage(_pingpong_source(base, HD_CHUNK + 1), _skeleton(HD_CHUNK + 1), [HD_ROI], cfg,
                    HD_CHUNK, device=device)
@@ -1739,13 +1833,13 @@ def phase_hd(device, smi, rows):
         if count:
             rows[name]["hd_chunk_launches"] = count
     _hd_kernels(base, p, device, rows)
-    _hd_agreement(base, cfg, p, mask, device)
+    plain_chunk = _hd_agreement(base, cfg, p, mask, device)
     _hd_sweep(base, cfg, p, device, smi)
     build = pathlib.Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         flow, pc1, mets, timer = _hd_full(base, cfg, p, device, smi, rows,
-                                          os.path.join(tmp, "full"))
+                                          os.path.join(tmp, "full"), plain_chunk)
         _hd_resume(base, cfg, device, flow, tmp)
     _hd_pc1(flow, pc1, mets, timer, device, smi)
     _hd_profile(base, cfg, device, smi)
@@ -1769,24 +1863,41 @@ def _hd_check(name, kern, plain_of, rows, what, step=None):
     rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
 
 
+def _in_turns(old_fn, new_fn, reps=MAIN_REPS):
+    """CUDA-event medians of two callables on the same tensors, timed in
+    turns (old, new, new, old) twice after a warm-up: (old ms, new ms)."""
+    old_fn(), new_fn()
+    old, new = [], []
+    for _ in range(2):
+        old.append(_median_ms(old_fn, reps))
+        new.append(_median_ms(new_fn, reps))
+        new.append(_median_ms(new_fn, reps))
+        old.append(_median_ms(old_fn, reps))
+    return statistics.median(old), statistics.median(new)
+
+
 def _hd_kernels(base, p, device, rows):
-    """15a: at each level of one 64-pair chunk (65 frames), K1, K2 bf16 and
-    K3 over the whole level where it runs whole (and at level 0), K4 bf16
-    over the level's box tiles and K3 in box mode on its output, each
-    bit-equal to its plain version on the tensors that are then timed:
-    each launch at its level, then each kernel's launches of the chunk back
-    to back, beside their bound.  Then the same at level 0 of a 256-pair
-    chunk, the sweep's largest, whose planes pass 2^31 elements, the plain
-    versions over slices of HD_PLAIN_PAIRS pairs."""
+    """15a: at each level of one 64-pair chunk (65 frames), K1; K2 bf16 over
+    the whole level with the pre-walk K2 beside it; where the level is
+    boxed, K2 bf16 in box mode over the level's box with K4 bf16 over the
+    box's tile list beside it; and K3 (whole, and box mode on K2's box
+    output): each bit-equal to its plain version on the tensors that are
+    then timed, each launch at its level (K2 against its earlier design in
+    turns), then the chunk's launches back to back beside their bound, the
+    path's K2 launches against the earlier designs' in turns.  Then the same
+    checks and K2 timings at level 0 of a 256-pair chunk, the sweep's
+    largest, whose planes pass 2^31 elements, the plain versions over
+    slices of HD_PLAIN_PAIRS pairs."""
     from btcs_pnes_optical_flow_tpu_torch.ops import cvx
     from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
     from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
 
     h, w = base.shape[1:]
     n, sigma, ws, gw = p.poly_n, p.poly_sigma, p.winsize, p.gaussian_win
-    print(f"== 15a. K1, K2 bf16, K4 bf16 and K3 at {h}x{w}: one {HD_CHUNK}-pair chunk, level by "
+    print(f"== 15a. K1, K2 bf16 (whole and box), K3, and K2's earlier designs (the pre-walk K2, "
+          f"K4 bf16 over the box's tiles) at {h}x{w}: one {HD_CHUNK}-pair chunk, level by "
           f"level, against the plain versions and timed; then level 0 at "
-          f"{HD_SWEEP_CHUNKS[-1]} pairs against the plain versions")
+          f"{HD_SWEEP_CHUNKS[-1]} pairs")
 
     def level(frames, k, flow_full):
         """Level k's image, expansion and flow (the kernel path's final flow
@@ -1796,92 +1907,159 @@ def _hd_kernels(base, p, device, rows):
         flow = (cvx.resize_bilinear(flow_full, hk, wk) * p.pyr_scale ** k).contiguous()
         return lv, fc.poly_exp_cf(lv, n, sigma), flow
 
-    def checks(lv, poly, flow, tiles, what, whole, step=None):
-        """One level's kernels against their plain versions; returns the M
-        planes that the level's K3 reads (K4's where the level is boxed)
-        and K4's tile list."""
+    def checks(lv, poly, flow, tiles, what, step=None):
+        """One level's kernels and K2's earlier designs against their plain
+        versions; returns the M planes that the level's K3 reads (K2's box
+        output where the level is boxed)."""
         hk, wk = lv.shape[-2:]
         r0, r1 = poly[:-1], poly[1:]
         _hd_check("poly_exp", poly, lambda sl: fb.poly_exp_cf_plain(lv[sl], n, sigma), rows,
                   what, step)
-        m = sel = None
-        if whole:
-            m = fc.update_matrices_cf(r0, r1, flow, "bf16")
-            _hd_check("update_matrices_bf16", m, lambda sl: fb.update_matrices_cf_plain(
-                r0[sl], r1[sl], flow[sl], "bf16"), rows, what, step)
-            _hd_check("update_flow", fc.update_flow_cf(m, ws, gw),
-                      lambda sl: fb.update_flow_cf_plain(m[sl], ws, gw), rows, f"{what}, whole",
-                      step)
+
+        def k2_plain(sl, box=None):
+            out = None if box is None else torch.zeros_like(r0[sl])
+            return fb.update_matrices_cf_plain(r0[sl], r1[sl], flow[sl], "bf16", box, out)
+
+        _hd_check("update_matrices_rows", fc.update_matrices_rows_cf(r0, r1, flow, 0, hk, "bf16"),
+                  k2_plain, rows, f"{what}, pre-walk K2 bf16", step)
+        m = fc.update_matrices_cf(r0, r1, flow, "bf16")
+        _hd_check("update_matrices_bf16", m, k2_plain, rows, what, step)
+        _hd_check("update_flow", fc.update_flow_cf(m, ws, gw),
+                  lambda sl: fb.update_flow_cf_plain(m[sl], ws, gw), rows, f"{what}, whole", step)
         if tiles is None:
-            return m, sel
+            return m
         del m
+        box = fb.tile_box(tiles, hk, wk)
         sel = fb.tile_list(flow.shape[0], tiles, hk, wk, device)
-        # The plain version's untouched tiles stay zero, as the kernel's must.
-        m = fc.update_matrices_tiles_cf(r0, r1, flow, sel, torch.zeros_like(r0), fb.TILE, "bf16")
-        _hd_check("update_matrices_tiles_bf16", m, lambda sl: fb.update_matrices_tiles_cf_plain(
+        # The plain versions' untouched pixels stay zero, as the kernels' must.
+        k4 = fc.update_matrices_tiles_cf(r0, r1, flow, sel, torch.zeros_like(r0), fb.TILE, "bf16")
+        _hd_check("update_matrices_tiles_bf16", k4, lambda sl: fb.update_matrices_tiles_cf_plain(
             r0[sl], r1[sl], flow[sl], fb.tile_list(sl.stop - sl.start, tiles, hk, wk, device),
             torch.zeros_like(r0[sl]), fb.TILE, "bf16"), rows,
             f"{what}, {sel.numel()} tiles of {tiles}", step)
-        box = fb.tile_box(tiles, hk, wk)
+        del k4, sel
+        m = fc.update_matrices_cf(r0, r1, flow, "bf16", box, torch.zeros_like(r0))
+        _hd_check("update_matrices_box_bf16", m, lambda sl: k2_plain(sl, box), rows,
+                  f"{what}, box {box}", step)
         # The plain version leaves the flow outside the box as it was.
         _hd_check("update_flow", fc.update_flow_cf(m, ws, gw, box, flow.clone()),
                   lambda sl: fb.update_flow_cf_plain(m[sl], ws, gw, box, flow[sl].clone()), rows,
                   f"{what}, box mode {box}", step)
-        return m, sel
+        return m
+
+    def bound_ms(px, cost):
+        return max(px * cost[0] / HBM_BYTES_PER_S, px * cost[1] / FP32_OPS_PER_S) * 1e3
+
+    def k2_turns(k, b, poly, flow, tiles, chunk=None, times=1):
+        """K2 bf16 whole against the pre-walk K2 and, where the level is boxed,
+        K2's box mode against K4's list, in turns on the level's tensors;
+        with chunk, the path's launches (box on a boxed level, else whole)
+        and the earlier design's go into the chunk's call lists."""
+        hk, wk = poly.shape[-2:]
+        r0, r1 = poly[:-1], poly[1:]
+        cost = _k2_cost(b, "bf16")
+        new = functools.partial(fc.update_matrices_cf, r0, r1, flow, "bf16")
+        old = functools.partial(fc.update_matrices_rows_cf, r0, r1, flow, 0, hk, "bf16")
+        old_ms, new_ms = _in_turns(old, new)
+        bd = bound_ms(b * hk * wk, cost)
+        rows["update_matrices_bf16"].setdefault("hd_level_ms", {})[f"{k}@{b}"] = new_ms
+        rows["update_matrices_bf16"].setdefault("hd_level_old_ms", {})[f"{k}@{b}"] = old_ms
+        print(f"  level {k} K2 bf16 whole, {b} pairs: {new_ms:.4f} ms, pre-walk {old_ms:.4f} ms, "
+              f"bound {bd:.4f} ms ({b * hk * wk} px): shares {100 * bd / new_ms:.1f}% and "
+              f"{100 * bd / old_ms:.1f}%")
+        if tiles is None:
+            if chunk is not None:
+                chunk["whole"] += [new] * times
+                chunk["whole_old"] += [old] * times
+                chunk["whole_bound"] += times * bd
+            return
+        box = y0, y1, x0, x1 = fb.tile_box(tiles, hk, wk)
+        m_new, m_old = torch.zeros_like(r0), torch.zeros_like(r0)
+        sel = fb.tile_list(b, tiles, hk, wk, device)
+        new = functools.partial(fc.update_matrices_cf, r0, r1, flow, "bf16", box, m_new)
+        old = functools.partial(fc.update_matrices_tiles_cf, r0, r1, flow, sel, m_old, fb.TILE,
+                                "bf16")
+        old_ms, new_ms = _in_turns(old, new)
+        bd = bound_ms(b * (y1 - y0) * (x1 - x0), cost)
+        rows["update_matrices_box_bf16"].setdefault("hd_level_ms", {})[f"{k}@{b}"] = new_ms
+        rows["update_matrices_box_bf16"].setdefault("hd_level_old_ms", {})[f"{k}@{b}"] = old_ms
+        print(f"  level {k} K2 bf16 box {box}, {b} pairs: {new_ms:.4f} ms, K4 list "
+              f"{old_ms:.4f} ms, bound {bd:.4f} ms ({b * (y1 - y0) * (x1 - x0)} px): shares "
+              f"{100 * bd / new_ms:.1f}% and {100 * bd / old_ms:.1f}%")
+        if chunk is not None:
+            chunk["box"] += [new] * times
+            chunk["box_old"] += [old] * times
+            chunk["box_bound"] += times * bd
 
     frames = torch.as_tensor(base[: HD_CHUNK + 1], device=device)
     flow_full = fb.farneback_flow_seq(frames, p).movedim(-1, 1).contiguous()
-    chunk = {k: dict(calls=[], bound_ms=0.0, level_ms={}) for k in (
-        "poly_exp", "update_matrices_tiles_bf16", "update_matrices_bf16", "update_flow")}
-
-    def add(name, k, fn, px, cost, times):
-        fn()
-        ms = statistics.median([_median_ms(fn, MAIN_REPS) for _ in range(2)])
-        bound = max(px * cost[0] / HBM_BYTES_PER_S, px * cost[1] / FP32_OPS_PER_S) * 1e3
-        c = chunk[name]
-        c["calls"] += [fn] * times
-        c["bound_ms"] += times * bound
-        c["level_ms"][k] = ms
-        print(f"  level {k} {name}: {ms:.4f} ms x{times}, bound {bound:.4f} ms ({px} px), "
-              f"share {100 * bound / ms:.1f}%")
-
+    chunk = dict(box=[], box_old=[], whole=[], whole_old=[], box_bound=0.0, whole_bound=0.0,
+                 poly_exp=[], poly_exp_bound=0.0, update_flow=[], update_flow_bound=0.0)
+    keep = []  # the tensors the chunk's calls read
     for k, (hk, wk), _, tiles, it in _hd_level_rows(p, h, w):
         lv, poly, flow = level(frames, k, flow_full)
-        m, sel = checks(lv, poly, flow, tiles, f"level {k} {hk}x{wk}, {HD_CHUNK} pairs",
-                        whole=tiles is None or k == 0)
-        r0, r1 = poly[:-1], poly[1:]
-        add("poly_exp", k, functools.partial(fc.poly_exp_cf, lv, n, sigma),
-            (HD_CHUNK + 1) * hk * wk, _k1_cost(n), 1)
+        m = checks(lv, poly, flow, tiles, f"level {k} {hk}x{wk}, {HD_CHUNK} pairs")
+        keep += [lv, poly, flow, m]
+        fn = functools.partial(fc.poly_exp_cf, lv, n, sigma)
+        ms = statistics.median([_median_ms(fn, MAIN_REPS) for _ in range(2)])
+        bd = bound_ms((HD_CHUNK + 1) * hk * wk, _k1_cost(n))
+        rows["poly_exp"].setdefault("hd_level_ms", {})[k] = ms
+        print(f"  level {k} K1: {ms:.4f} ms, bound {bd:.4f} ms, share {100 * bd / ms:.1f}%")
+        chunk["poly_exp"].append(fn)
+        chunk["poly_exp_bound"] += bd
+        k2_turns(k, HD_CHUNK, poly, flow, tiles, chunk, it)
         if tiles is None:
-            add("update_matrices_bf16", k,
-                functools.partial(fc.update_matrices_cf, r0, r1, flow, "bf16"),
-                HD_CHUNK * hk * wk, _k2_cost(HD_CHUNK, "bf16"), it)
-            add("update_flow", k, functools.partial(fc.update_flow_cf, m, ws, gw),
-                HD_CHUNK * hk * wk, _k3_cost(ws, gw), it)
+            box, px = None, HD_CHUNK * hk * wk
+            fn = functools.partial(fc.update_flow_cf, m, ws, gw)
         else:
-            n_listed = int(fb.tile_mask(sel, HD_CHUNK, hk, wk, fb.TILE).sum())
-            add("update_matrices_tiles_bf16", k, functools.partial(
-                fc.update_matrices_tiles_cf, r0, r1, flow, sel, m, fb.TILE, "bf16"),
-                n_listed, _k2_cost(HD_CHUNK, "bf16"), it)
-            y0, y1, x0, x1 = box = fb.tile_box(tiles, hk, wk)
-            add("update_flow", k, functools.partial(fc.update_flow_cf, m, ws, gw, box,
-                                                    flow.clone()),
-                HD_CHUNK * (y1 - y0) * (x1 - x0), _k3_cost(ws, gw), it)
-    total = bound = 0.0
-    for name, c in chunk.items():
-        def run(calls=c["calls"]):
+            box = y0, y1, x0, x1 = fb.tile_box(tiles, hk, wk)
+            px = HD_CHUNK * (y1 - y0) * (x1 - x0)
+            fn = functools.partial(fc.update_flow_cf, m, ws, gw, box, flow.clone())
+        ms = statistics.median([_median_ms(fn, MAIN_REPS) for _ in range(2)])
+        bd = bound_ms(px, _k3_cost(ws, gw))
+        rows["update_flow"].setdefault("hd_level_ms", {})[k] = ms
+        print(f"  level {k} K3 {'whole' if box is None else f'box mode {box}'}: {ms:.4f} ms x{it}, "
+              f"bound {bd:.4f} ms ({px} px), share {100 * bd / ms:.1f}%")
+        chunk["update_flow"] += [fn] * it
+        chunk["update_flow_bound"] += it * bd
+
+    def run(calls):
+        def go():
             for fn in calls:
                 fn()
-        c["ms"] = statistics.median([_median_ms(run, MAIN_REPS) for _ in range(2)])
-        total, bound = total + c["ms"], bound + c["bound_ms"]
-        rows[name].update(hd_chunk_ms=c["ms"], hd_chunk_bound_ms=c["bound_ms"],
-                          hd_level_ms=c["level_ms"])
-        print(f"  {name}: its {len(c['calls'])} launches of one chunk back to back "
-              f"{c['ms']:.4f} ms against a bound of {c['bound_ms']:.4f} ms "
-              f"({100 * c['bound_ms'] / c['ms']:.1f}%)")
+        return go
+
+    total = bound = 0.0
+    for name in ("poly_exp", "update_flow"):
+        ms = statistics.median([_median_ms(run(chunk[name]), MAIN_REPS) for _ in range(2)])
+        total, bound = total + ms, bound + chunk[name + "_bound"]
+        rows[name].update(hd_chunk_ms=ms, hd_chunk_bound_ms=chunk[name + "_bound"])
+        print(f"  {name}: its {len(chunk[name])} launches of one chunk back to back {ms:.4f} ms "
+              f"against a bound of {chunk[name + '_bound']:.4f} ms "
+              f"({100 * chunk[name + '_bound'] / ms:.1f}%)")
+    for part, name, old_name in (("box", "update_matrices_box_bf16", "update_matrices_tiles_bf16"),
+                                 ("whole", "update_matrices_bf16", "update_matrices_rows")):
+        old_ms, ms = _in_turns(run(chunk[part + "_old"]), run(chunk[part]))
+        bd = chunk[part + "_bound"]
+        total, bound = total + ms, bound + bd
+        rows[name].update(hd_chunk_ms=ms, hd_chunk_bound_ms=bd, hd_chunk_old_ms=old_ms)
+        rows[old_name].update(hd_chunk_ms=old_ms, hd_chunk_bound_ms=bd)
+        print(f"  K2 bf16 {part}: its {len(chunk[part])} launches of one chunk back to back "
+              f"{ms:.4f} ms, the earlier design ({old_name}) {old_ms:.4f} ms, against a bound of "
+              f"{bd:.4f} ms ({100 * bd / ms:.1f}% and {100 * bd / old_ms:.1f}%)")
+    warp_old, warp_new = _in_turns(run(chunk["box_old"] + chunk["whole_old"]),
+                                   run(chunk["box"] + chunk["whole"]))
+    warp_bound = chunk["box_bound"] + chunk["whole_bound"]
+    rows["update_matrices_box_bf16"].update(hd_chunk_warp_ms=warp_new, hd_chunk_warp_old_ms=warp_old,
+                                            hd_chunk_warp_bound_ms=warp_bound)
+    print(f"  the chunk's warp and assembly launches ({len(chunk['box'])} box + "
+          f"{len(chunk['whole'])} whole): {warp_new:.4f} ms, the earlier designs {warp_old:.4f} "
+          f"ms, bound {warp_bound:.4f} ms ({100 * warp_bound / warp_new:.1f}% and "
+          f"{100 * warp_bound / warp_old:.1f}%)")
     print(f"kernel time per {HD_CHUNK}-pair chunk {total:.4f} ms, bound {bound:.4f} ms "
           f"({100 * bound / total:.1f}%)")
-    del frames, flow_full, chunk, c, run, lv, poly, flow, m, sel, r0, r1
+    del frames, flow_full, chunk, keep, lv, poly, flow, m
+    torch.cuda.empty_cache()
 
     # The sweep's largest chunk at level 0: the planes' element offsets pass
     # 2^31, where an int index would wrap.
@@ -1893,15 +2071,36 @@ def _hd_kernels(base, p, device, rows):
     lv, poly, flow = level(frames, 0, flow_full)
     del frames, flow_full
     print(f"  level 0 at {b} pairs: {poly.numel()} elements in the expansion (2^31 = {2**31})")
-    checks(lv, poly, flow, fb.box_tiles(p.roi_active_px[0], h, w), f"level 0, {b} pairs", whole=True, step=HD_PLAIN_PAIRS)
+    tiles0 = fb.box_tiles(p.roi_active_px[0], h, w)
+    m = checks(lv, poly, flow, tiles0, f"level 0, {b} pairs", step=HD_PLAIN_PAIRS)
+    del m
+    k2_turns(0, b, poly, flow, tiles0)
     del lv, poly, flow
     torch.cuda.empty_cache()
+
+
+def _plain_path_chunk(base, cfg, device):
+    """The first chunk's features through run_flow_stage on the card with
+    the level loop's steps swapped for their plain versions (the plain
+    path, kernels=False)."""
+    from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_flow_stage
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
+
+    steps = fb._kernel_steps
+    fb._kernel_steps = lambda kernels: steps(False)
+    try:
+        return run_flow_stage(_pingpong_source(base, HD_CHUNK + 1), _skeleton(HD_CHUNK + 1),
+                              [HD_ROI], cfg, HD_CHUNK, device=device)
+    finally:
+        fb._kernel_steps = steps
 
 
 def _hd_agreement(base, cfg, p, mask, device):
     """15b: on the first chunk, ROI-dispatched against full-frame features,
     the kernel path against the plain path, and the bench
-    config's bf16 flow in the ROI against the fp32 flow."""
+    config's bf16 flow in the ROI against the fp32 flow.  Returns the
+    plain path's features of the chunk through run_flow_stage, which 15d's
+    first chunk must equal."""
     from btcs_pnes_optical_flow_tpu_torch.config import FarnebackParams
     from btcs_pnes_optical_flow_tpu_torch.models.flow import roi_body_flow_seq, to_device
     from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
@@ -1931,6 +2130,7 @@ def _hd_agreement(base, cfg, p, mask, device):
               f"{float(e.max()):.5f} (bar: mean < {BENCH_EPE_PX})")
         if not mean < BENCH_EPE_PX:
             raise AssertionError(f"1080p bf16 flow EPE vs {key} is past the bar")
+    return _plain_path_chunk(base, cfg, device)
 
 
 def _hd_sweep(base, cfg, p, device, smi):
@@ -1980,8 +2180,9 @@ def _hd_sweep(base, cfg, p, device, smi):
         raise AssertionError("the flow stage's features depend on the chunk size")
 
 
-def _hd_full(base, cfg, p, device, smi, rows, ck):
-    """15d: run_full over the 10-minute recording with a checkpoint store."""
+def _hd_full(base, cfg, p, device, smi, rows, ck, plain_chunk):
+    """15d: run_full over the 10-minute recording with a checkpoint store;
+    its first chunk's features array_equal to the plain path's (15b)."""
     from btcs_pnes_optical_flow_tpu_torch.dataio.checkpoint import ChunkStore
     from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_full
     from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
@@ -2014,7 +2215,7 @@ def _hd_full(base, cfg, p, device, smi, rows, ck):
     print(f"launches {launches} (expected {want})")
     if launches != want:
         raise AssertionError("the 10-minute run's launches differ from the schedule")
-    for name in ("poly_exp", "update_matrices_tiles_bf16", "update_matrices_bf16", "update_flow"):
+    for name in ("poly_exp", "update_matrices_bf16", "update_matrices_box_bf16", "update_flow"):
         rows[name]["hd_launches"] = launches[name]
     if flow.vx.shape != (n, 1) or not np.isnan(flow.vx[0, 0]) or not np.isfinite(flow.vx[1:]).all():
         raise AssertionError(f"features {flow.vx.shape}: NaN is expected at frame 0 only")
@@ -2024,6 +2225,13 @@ def _hd_full(base, cfg, p, device, smi, rows, ck):
     stored = ChunkStore(ck).completed_chunks()
     if stored != list(range(0, n - 1, HD_CHUNK)):
         raise AssertionError(f"the store holds {len(stored)} chunks, not {n_chunks}")
+    head = slice(0, HD_CHUNK + 1)
+    same = all(np.array_equal(getattr(flow, nm)[head], getattr(plain_chunk, nm), equal_nan=True)
+               for nm in ("vx", "vy", "mag"))
+    print(f"first chunk's features array_equal to the plain path's through run_flow_stage "
+          f"(15b): {same}")
+    if not same:
+        raise AssertionError("the 10-minute run's first chunk differs from the plain path's")
     st = {k: round(v, 4) for k, v in timer.times.items()}
     print(f"10-minute run_full: {wall:.4f} s, {n / wall:.2f} frames/s end to end "
           f"({n / timer.times['flow']:.2f} through the flow stage); stage seconds {st}; peak "
@@ -2126,10 +2334,40 @@ def _hd_pc1(flow, pc1, mets, timer, device, smi):
         f"{f} {float(getattr(m, f)):.6g}" for f in m._fields))
 
 
+@contextlib.contextmanager
+def _k4_boxed_levels():
+    """The level loop as it ran boxed levels before K2's box mode: K4 over a
+    device-built list of the box's tiles, whose range the wrapper reads
+    back before each launch.  Whole levels run K2 as they do now."""
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
+
+    k2 = fc.update_matrices_cf
+    th, tw = fb.TILE
+
+    def um(r0, r1, flow, precision="fp32", box=None, out=None):
+        if box is None:
+            return k2(r0, r1, flow, precision)
+        y0, y1, x0, x1 = box
+        hk, wk = r0.shape[-2:]
+        tiles = (y0 // th, -(-y1 // th), x0 // tw, -(-x1 // tw))
+        sel = fb.tile_list(r0.shape[0], tiles, hk, wk, r0.device)
+        return fc.update_matrices_tiles_cf(r0, r1, flow, sel, out, fb.TILE, precision)
+
+    fc.update_matrices_cf = um
+    try:
+        yield
+    finally:
+        fc.update_matrices_cf = k2
+
+
 def _hd_profile(base, cfg, device, smi):
     """15g: two chunks through run_flow_stage under the profiler: device
     time by kernel, the host's largest operators, the device's idle gaps
-    and its busy share of an unprofiled run."""
+    and its busy share of an unprofiled run; then the host syncs of the two
+    chunks (cudaStreamSynchronize, aten::_local_scalar_dense) against the
+    level loop's earlier K4 form of the boxed levels, and the two forms'
+    unprofiled times in turns."""
     from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_flow_stage
 
     n = 2 * HD_CHUNK + 1
@@ -2139,16 +2377,42 @@ def _hd_profile(base, cfg, device, smi):
         return run_flow_stage(_pingpong_source(base, n), skel, [HD_ROI], cfg, HD_CHUNK,
                               device=device)
 
+    def run_k4():
+        with _k4_boxed_levels():
+            return run()
+
     run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run()
     wall = time.perf_counter() - t0
+    syncs = dict.fromkeys(("cudaStreamSynchronize", "aten::_local_scalar_dense",
+                           "cudaMemcpyAsync"), 0)
     busy = phase_profile(f"== 15g. device time by kernel, run_flow_stage over {n} frames (two "
-                         f"chunks), with decode and copies", run, host_top=10, gaps=True)
+                         f"chunks), with decode and copies", run, host_top=10, gaps=True,
+                         counts=syncs)
     if busy is not None:
         print(f"device busy share: {busy:.3f} ms of kernel time against {1e3 * wall:.3f} ms "
               f"for an unprofiled run: {100 * busy / (1e3 * wall):.1f}% on [{smi}]")
+    syncs_k4 = dict.fromkeys(syncs, 0)
+    phase_profile("   the same two chunks with the boxed levels on K4's list form (the level "
+                  "loop before K2's box mode)", run_k4, counts=syncs_k4)
+    print("host events per chunk, K2 box form vs K4 list form: " + ", ".join(
+        f"{key} {syncs[key] / 2:g} vs {syncs_k4[key] / 2:g}" for key in syncs))
+    walls = {"K4 list": [], "K2 box": []}
+    for label in ("K4 list", "K2 box", "K2 box", "K4 list"):
+        fn = run_k4 if label == "K4 list" else run
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        walls[label].append(time.perf_counter() - t0)
+    print("two chunks through run_flow_stage, unprofiled, in turns: " + ", ".join(
+        f"{label} {1e3 * statistics.mean(v):.3f} ms ({', '.join(f'{1e3 * t:.3f}' for t in v)})"
+        for label, v in walls.items()) + f" on [{smi}]")
+    if not syncs_k4["cudaStreamSynchronize"]:
+        print("the profiler recorded no cudaStreamSynchronize: host syncs not counted")
+    elif syncs["cudaStreamSynchronize"] >= syncs_k4["cudaStreamSynchronize"]:
+        raise AssertionError("K2's box form did not remove K4's host syncs")
 
 
 def main():

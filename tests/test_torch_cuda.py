@@ -175,6 +175,104 @@ def test_update_matrices_tiles_kernel(card, shape, case):
     assert _rel(kern, plain) <= 1e-5
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("alias", [True, False])
+def test_update_matrices_walk_whole_and_box(card, shape, precision, alias):
+    """K2's walk over the whole level and in box mode (at each of _boxes'
+    boxes) equal to its plain version bit for bit, with r1 the sequence's
+    next frames (r0's storage shifted by one frame) or an independent
+    expansion; box mode leaves M outside the box as it was."""
+    b, h, w = shape
+    seq = fb.poly_exp_cf_plain(_img((b + 1, h, w), 51).to(card), 5, 1.2)
+    r0 = seq[:-1]
+    r1 = seq[1:] if alias else fb.poly_exp_cf_plain(_img(shape, 52).to(card), 5, 1.2)
+    rng = np.random.default_rng(53)
+    flow = rng.normal(size=(b, 2, h, w)).astype(np.float32) * 4
+    flow[:, 0, ::5, ::3] = 1e4
+    flow[:, 1, 1::7, ::4] = -3e9
+    flow = torch.as_tensor(flow).to(card)
+    fc.reset_launch_counts()
+    whole = fc.update_matrices_cf(r0, r1, flow, precision)
+    assert torch.equal(whole, fb.update_matrices_cf_plain(r0, r1, flow, precision))
+    m0 = torch.as_tensor(rng.normal(size=(b, 5, h, w)).astype(np.float32)).to(card)
+    for box in _boxes(h, w):
+        y0, y1, x0, x1 = box
+        kern = fc.update_matrices_cf(r0, r1, flow, precision, box, m0.clone())
+        assert torch.equal(kern, fb.update_matrices_cf_plain(r0, r1, flow, precision, box,
+                                                              m0.clone()))
+        inside = torch.zeros_like(kern, dtype=torch.bool)
+        inside[:, :, y0:y1, x0:x1] = True
+        assert torch.equal(kern[~inside], m0[~inside]) and torch.equal(kern[inside], whole[inside])
+    suffix = "_bf16" if precision == "bf16" else ""
+    n_box = len(_boxes(h, w))
+    assert fc.LAUNCHES["update_matrices" + suffix] == 1 + n_box
+    assert fc.LAUNCHES["update_matrices_box" + suffix] == n_box
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("pairs", [1, 2, 3, 7, 8])
+def test_update_matrices_walk_run_boundaries(card, precision, pairs):
+    """Runs of 1, 2, 3, 7 and 8 pairs over 7 pairs (runs that divide the
+    batch, that do not, and one run of all pairs), whole and boxed: every
+    pair bit-equal to the plain version."""
+    b, h, w = 7, 45, 100
+    seq = fb.poly_exp_cf_plain(_img((b + 1, h, w), 54).to(card), 5, 1.2)
+    r0, r1 = seq[:-1], seq[1:]
+    flow = torch.as_tensor(np.random.default_rng(55).normal(
+        size=(b, 2, h, w)).astype(np.float32) * 3).to(card)
+    plain = fb.update_matrices_cf_plain(r0, r1, flow, precision)
+    for box in ((0, h, 0, w), (8, 40, 32, 96), (3, 44, 5, 99)):
+        y0, y1, x0, x1 = box
+        out = torch.full_like(plain, float("nan"))
+        fc._walk(r0, r1, flow, precision, box, out, True, pairs)
+        assert torch.equal(out[:, :, y0:y1, x0:x1], plain[:, :, y0:y1, x0:x1])
+        assert torch.isnan(out).sum() == out.numel() - b * 5 * (y1 - y0) * (x1 - x0)
+
+
+def test_update_matrices_walk_picks_short_runs_on_a_small_level(card):
+    """The 1080p pyramid's level 3 (135×240, 136 tiles) at 64 pairs: the
+    wrapper's runs are short enough to fill the card, and its result is
+    the plain version's."""
+    b, h, w = 64, 135, 240
+    resident = fc._resident(card, 1)
+    ppr = fc.pairs_per_run(-(-h // 8) * -(-w // 32), b, resident)
+    assert resident >= 132 and ppr < 8
+    seq = fb.poly_exp_cf_plain(_img((b + 1, h, w), 56).to(card), 5, 1.2)
+    flow = torch.as_tensor(np.random.default_rng(57).normal(
+        size=(b, 2, h, w)).astype(np.float32) * 2).to(card)
+    assert torch.equal(fc.update_matrices_cf(seq[:-1], seq[1:], flow, "bf16"),
+                       fb.update_matrices_cf_plain(seq[:-1], seq[1:], flow, "bf16"))
+
+
+def test_update_matrices_walk_past_2_31_elements(card):
+    """Level 0 of a 256-pair 1080p chunk: the expansion holds 2.65e9
+    elements, past 2^31, so an int element offset would wrap.  The last
+    pairs, whose offsets lie past 2^31, whole and in the 1080p ROI's
+    level-0 box, against the plain version on those pairs."""
+    b, h, w = 256, 1080, 1920
+    g = torch.Generator(device=card).manual_seed(58)
+    base = torch.rand((h + 16, w + 16), generator=g, device=card) * 255
+    frames = torch.stack([base[i % 16:i % 16 + h, (3 * i) % 16:(3 * i) % 16 + w]
+                          for i in range(b + 1)]).contiguous()
+    seq = fc.poly_exp_cf(frames, 5, 1.2)
+    del frames
+    assert seq.numel() > 2 ** 31
+    flow = torch.randn((b, 2, h, w), generator=g, device=card) * 2
+    tail = slice(b - 4, b)
+    for box in (None, (264, 904, 384, 1632)):
+        out = None if box is None else torch.zeros((b, 5, h, w), device=card)
+        kern = fc.update_matrices_cf(seq[:-1], seq[1:], flow, "bf16", box, out)
+        want = fb.update_matrices_cf_plain(seq[:-1][tail], seq[1:][tail], flow[tail], "bf16")
+        if box is not None:
+            y0, y1, x0, x1 = box
+            kern = kern[:, :, y0:y1, x0:x1]
+            want = want[:, :, y0:y1, x0:x1]
+        assert torch.equal(kern[tail], want)
+        del kern, want, out
+    torch.cuda.empty_cache()
+
+
 def _boxes(h, w):
     return [(0, h // 2 + 1, 0, w // 2 + 1), (h // 3, h, w // 3, w), (0, h, 0, w),
             (min(2, h - 1), h - 1, 1, max(2, w - 3))]
@@ -225,7 +323,8 @@ def test_tile_and_box_wrappers_reject_bad_inputs(card):
 
 def _pipeline_inputs():
     """17 frames of 128×256 with a moving blob, body axes with NaN rows 5-6,
-    and an ROI small enough that level 0 runs boxed (K4)."""
+    and an ROI small enough that level 0 runs boxed (K2 and K3 in box
+    mode)."""
     from btcs_pnes_optical_flow_tpu_torch.dataio.contracts import Skeleton
 
     n, h, w = 17, 128, 256
@@ -246,7 +345,8 @@ def _pipeline_inputs():
 
 def test_run_flow_stage_card_matches_cpu(card):
     """The pipeline's ROI-dispatched flow stage on the card against the
-    CPU; the ROI is small enough that level 0 runs boxed (K4)."""
+    CPU; the ROI is small enough that level 0 runs boxed (K2's box mode,
+    never K4)."""
     from btcs_pnes_optical_flow_tpu_torch.config import PipelineConfig
     from btcs_pnes_optical_flow_tpu_torch.dataio.video import ArraySource
     from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_flow_stage
@@ -255,7 +355,7 @@ def test_run_flow_stage_card_matches_cpu(card):
     fc.reset_launch_counts()
     gpu = run_flow_stage(ArraySource(frames, 30.0), skel, [roi], PipelineConfig(),
                          chunk_pairs=8, device=card)
-    assert fc.LAUNCHES["update_matrices_tiles"] > 0
+    assert fc.LAUNCHES["update_matrices_box"] > 0 and fc.LAUNCHES["update_matrices_tiles"] == 0
     cpu = run_flow_stage(ArraySource(frames, 30.0), skel, [roi], PipelineConfig(),
                          chunk_pairs=8, device="cpu")
     assert np.array_equal(gpu.t_sec, cpu.t_sec) and np.array_equal(gpu.axes_ok, cpu.axes_ok)

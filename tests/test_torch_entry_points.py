@@ -168,3 +168,21 @@ def test_ensure_odd_is_the_filters_one():
     assert optical_PC1.ensure_odd is filters.ensure_odd
     for n in range(-3, 40):
         assert optical_PC1.ensure_odd(n) == joptical_PC1.ensure_odd(n)
+
+
+def test_utils_package_exports_the_jax_packages_names():
+    """``utils`` re-exports what the JAX package's ``utils/__init__.py``
+    does, the port's own timing objects."""
+    import types
+
+    import btcs_pnes_optical_flow_tpu.utils as jutils
+    import btcs_pnes_optical_flow_tpu_torch.utils as tutils
+    from btcs_pnes_optical_flow_tpu_torch.utils import StageTimer, device_timer, trace, timing
+
+    def public(mod):  # submodules imported elsewhere also appear as attributes
+        return {n for n, v in vars(mod).items()
+                if not n.startswith("_") and not isinstance(v, types.ModuleType)}
+
+    assert public(tutils) == public(jutils) == {"StageTimer", "device_timer", "trace"}
+    assert (StageTimer, device_timer, trace) == (timing.StageTimer, timing.device_timer,
+                                                timing.trace)
