@@ -19,6 +19,11 @@ frames and of the JAX cohort runner's table: integer columns as integers,
 float64 values in their shortest round-trip form (``repr``), NaN as an
 empty field, text quoted only where it holds a comma, a quote or a line
 break, ``\\n`` line ends.  The readers return a dict of NumPy columns.
+
+``flow_frame``, ``pc1_frame`` and ``summary_frame`` build the JAX
+contracts' pandas frames (same columns, order and dtypes) for callers
+that have pandas; they import it when called, so this module loads
+where pandas is missing.
 """
 
 from __future__ import annotations
@@ -68,6 +73,42 @@ def save_skeleton_npz(path: str, skel: Skeleton) -> None:
     np.savez(path, time_all=skel.time_all, fps=skel.fps, ex=skel.ex, ey=skel.ey)
 
 
+def _pandas():
+    try:
+        import pandas
+    except ImportError as exc:
+        raise ImportError("the frame helpers need pandas, which is not installed; the "
+                          "write_*_csv functions write the same files without it") from exc
+    return pandas
+
+
+def flow_frame(frame_idx, t_sec, skel_idx, axes_ok, vx, vy, mag):
+    """flow.csv's rows as a pandas DataFrame (JAX ``contracts.flow_frame``)."""
+    return _pandas().DataFrame(dict(zip(FLOW_COLUMNS, _flow_columns(
+        frame_idx, t_sec, skel_idx, axes_ok, vx, vy, mag))))
+
+
+def pc1_frame(t_sec, pc1_dyn):
+    """flow_pc1.csv's rows as a pandas DataFrame (JAX ``contracts.pc1_frame``)."""
+    return _pandas().DataFrame({"t_sec": np.asarray(t_sec, float),
+                                "pc1_dyn": np.asarray(pc1_dyn, float)})
+
+
+def summary_frame(metrics, window_sec: float = 10.0, source: str = "pc1_dyn"):
+    """The one-row summary (optical_PC1.py:285-299) as a pandas DataFrame
+    (JAX ``contracts.summary_frame``)."""
+    return _pandas().DataFrame([{
+        "PC1_source": source,
+        "window_sec": float(window_sec),
+        "PC1_area_0_10": float(metrics.pc1_area),
+        "ADS_slope_0_10": float(metrics.ads_slope),
+        "ADS_R2_0_10": float(metrics.ads_r2),
+        "Kendall_tau_0_10": float(metrics.kendall_tau),
+        "Kendall_p_0_10": float(metrics.kendall_p),
+        "Peak_n": int(metrics.peak_n),
+    }])
+
+
 def _float_field(x) -> str:
     x = float(x)
     return "" if math.isnan(x) else repr(x)
@@ -84,13 +125,18 @@ def _write(path: str, header: Sequence[str], columns, kinds: str) -> None:
         w.writerows(zip(*cols))
 
 
-def write_flow_csv(path: str, frame_idx, t_sec, skel_idx, axes_ok, vx, vy, mag) -> None:
-    """flow.csv, as ``flow_frame(...).to_csv(path, index=False)``."""
-    cols = [np.asarray(frame_idx, dtype=int), np.asarray(t_sec, dtype=float),
+def _flow_columns(frame_idx, t_sec, skel_idx, axes_ok, vx, vy, mag):
+    """flow.csv's columns in FLOW_COLUMNS order, as their dtypes."""
+    return [np.asarray(frame_idx, dtype=int), np.asarray(t_sec, dtype=float),
             np.asarray(skel_idx, dtype=int), np.asarray(axes_ok, dtype=int),
             np.asarray(vx, dtype=float), np.asarray(vy, dtype=float),
             np.asarray(mag, dtype=float)]
-    _write(path, FLOW_COLUMNS, cols, "ifiifff")
+
+
+def write_flow_csv(path: str, frame_idx, t_sec, skel_idx, axes_ok, vx, vy, mag) -> None:
+    """flow.csv, as ``flow_frame(...).to_csv(path, index=False)``."""
+    _write(path, FLOW_COLUMNS, _flow_columns(frame_idx, t_sec, skel_idx, axes_ok, vx, vy, mag),
+           "ifiifff")
 
 
 def write_pc1_csv(path: str, t_sec, pc1_dyn) -> None:

@@ -41,7 +41,13 @@ def to_device(frames, ex, ey, roi_masks, device):
 
 def _project_reduce(flow, ex, ey, roi_masks) -> FlowFeatures:
     """Project flow (B, H, W, 2) onto (ex, ey) (B, 2) and average over
-    each mask (R, H, W); flow is never NaN, so the mean is the nanmean."""
+    each mask (R, H, W); flow is never NaN, so the mean is the nanmean.
+
+    Each mask is reduced by its own product, so ROI r's features do not
+    depend on which other ROIs the call holds: one (B, HW)·(HW, R) product
+    sums in an order that changes with R (JAX's einsum does), and the
+    features of a bilateral run would then differ in their last bits from
+    a run of each ROI alone."""
     fx = flow[..., 0]
     fy = flow[..., 1]
     fx_body = fx * ex[:, 0, None, None] + fy * ex[:, 1, None, None]
@@ -52,7 +58,8 @@ def _project_reduce(flow, ex, ey, roi_masks) -> FlowFeatures:
     cnt = torch.clamp(m.sum((-2, -1)), min=1.0)
 
     def red(z):
-        return torch.einsum("bhw,rhw->br", z, m) / cnt[None, :]
+        s = torch.cat([torch.einsum("bhw,rhw->br", z, m[r : r + 1]) for r in range(len(m))], 1)
+        return s / cnt[None, :]
 
     return FlowFeatures(vx=red(fx_body), vy=red(fy_body), mag=red(mag_body))
 

@@ -105,6 +105,12 @@ class FlowStageResult:
     vy: np.ndarray         # (T, R)
     mag: np.ndarray        # (T, R)
 
+    def to_frame(self, roi: int = 0):
+        """ROI ``roi``'s rows as flow.csv's pandas DataFrame (needs pandas)."""
+        return contracts.flow_frame(self.frame, self.t_sec, self.skel_idx,
+                                    self.axes_ok.astype(int), self.vx[:, roi],
+                                    self.vy[:, roi], self.mag[:, roi])
+
 
 def run_flow_stage(
     video,

@@ -2,8 +2,9 @@
 (Farnebäck), the TV-L1 flow engine, the production pipeline run_full
 (decode → ROI-dispatched flow → PC1 → metrics), the cohort runner, the
 reference-compatible CLIs, streaming PC1, the JAX bench's bf16 flow config,
-the height-sharded flow, the batched metric head and BASELINE config 3 (a
-10-minute 1080p recording with checkpoint resume).
+the height-sharded flow, the batched metric head, BASELINE config 3 (a
+10-minute 1080p recording with checkpoint resume), config 2 (left and right
+ROIs on one recording) and config 5 (TV-L1 at clinical frame sizes).
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -106,12 +107,34 @@ Phases (any failed check raises, so the exit code is non-zero):
              launches; (15f) pc1_streaming against run_pc1_stage; (15g) a
              profile of two chunks with the device's idle gaps, and the host
              syncs per chunk and the two chunks' time against the level loop
-             with its boxed levels on K4's list form.
+             with its boxed levels on K4's list form;
+16. BASELINE config 2 — left and right ROIs on one 1080p recording (a
+             two-blob base, 3601 frames = 2 minutes) through run_full under
+             the JAX bench's flow config, chunks of 64 pairs: each level's
+             union box, one chunk's launches through run_flow_stage against
+             the union-box schedule, both ROIs' boxed features against the
+             full frame and the kernel path against the plain path on the
+             first chunk (0.0), the 2-minute run (launches, frames/s, stage
+             seconds, peak memory, both metric rows), and each ROI's features,
+             PC1 and metric row array_equal to a run with that ROI alone;
+17. BASELINE config 5 — tvl1_flow on 16 pairs of render_clip(seed=2) at
+             720×1280 and 1080×1920: the engine of each level (_resident_ok:
+             the epsilon loop at 720p level 0 and 1080p levels 0–1, K6 on the
+             rest), launches against that schedule, K5 at every level and K6
+             at every resident level against their plain versions and timed
+             with their bounds (K5 beside F.grid_sample at level 0), the call
+             against the plain path, the epsilon loop's iterations per level
+             and warp, its host syncs (profiler) and share of the call,
+             frames/s and peak memory; then the card against the CPU at
+             112×896 (level 0 on the epsilon loop) and the translation of a
+             textured 1080p frame (interior EPE).
 Phase 3 and 3b also hold K2's and K4's bf16 instances and K2's row-offset
 instance against their plain versions; phase 9 runs run_cohort over a mesh
 of every card present and, with one card, over a 4-shard cuda:0 layout
-(rows equal to the batched run's).  Phases 9–15 print their seconds; the
-kernel rows of phase 15's kernels carry its 1080p figures (hd_*).
+(rows equal to the batched run's).  Phases 9–17 print their seconds; the
+kernel rows of phase 15's kernels carry its 1080p figures (hd_*), those of
+phase 16's its launches (bilateral_*), K5's and K6's phase 17's figures
+(tv_<size>_*).
 
 Every kernel row of the kernels JSON carries its bound: the larger of the
 bytes it must move (each input read once, each output written once) over
@@ -229,6 +252,21 @@ HD_SWEEP_CHUNKS = (32, 64, 128, 256)
 HD_CRASH_FRAME = 7200  # 15e's decode error, 40% into the recording
 HD_TAIL_FRAMES = 7000  # 15e's cut recording: 6999 pairs, a 23-pair tail chunk
 STREAM_CORR = 0.9999  # phase 11's streaming bar
+# Phase 16, BASELINE config 2: bilateral left/right ROIs on one 1080p
+# recording.  A 129-frame base of two blobs, each moving by bench.render_clip's
+# law (x / w, Hz), on one texture, played forward and back to 2 minutes (the
+# length of a seizure); one polygon around each blob, 600 px apart.
+BI_FRAMES = 3601
+BI_BLOBS = ((0.25, 3.0), (0.75, 2.5))
+BI_ROIS = (np.array([[300.0, 350.0], [660.0, 370.0], [650.0, 730.0], [310.0, 710.0]]),
+           np.array([[1260.0, 370.0], [1620.0, 350.0], [1610.0, 710.0], [1270.0, 730.0]]))
+# Phase 17, BASELINE config 5: TV-L1 at clinical frame sizes, with the pyramid
+# levels that the JAX rule _resident_ok sends to the epsilon loop
+# (tests/test_torch_tvl1.py test_pd_engine_resolution_per_level_matches_jax).
+TV_CLINICAL = {(720, 1280): [0], (1080, 1920): [0, 1]}
+TV_EPS_SIZE = (112, 896)  # card vs CPU where level 0 takes the epsilon loop
+TV_SHIFT, TV_EPE_PX = (1.2, -0.7), 0.25  # tests/test_torch_tvl1.py's translation and bar
+TV_REPS = 5  # CUDA-event repetitions per round of phase 17's kernel timings
 # TV-L1: (name, K, TPU kernel it replaces, tolerance, and why).
 TV_KERNELS = (
     ("warp_sample", "K5", f"{PALLAS}:1359", 1e-5,
@@ -553,13 +591,17 @@ NO_LIBRARY = {
 }
 
 
-def _set_bound(row, pixels, bytes_per_px, ops_per_px, library_ms, why_null=None):
-    """Fill a kernel row's bound (the larger of its bytes over the HBM rate
-    and its operations over the float32 rate), share and library time."""
+def _bound(pixels, bytes_per_px, ops_per_px):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the HBM
+    rate and the float32 operations over the float32 rate."""
     t_bytes = pixels * bytes_per_px / HBM_BYTES_PER_S * 1e3
     t_ops = pixels * ops_per_px / FP32_OPS_PER_S * 1e3
-    row["bound_ms"], row["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
-                                                                                     "operations")
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _set_bound(row, pixels, bytes_per_px, ops_per_px, library_ms, why_null=None):
+    """Fill a kernel row's bound (``_bound``), share and library time."""
+    row["bound_ms"], row["bound_by"] = _bound(pixels, bytes_per_px, ops_per_px)
     row["share_of_bound"] = row["bound_ms"] / row["ms"]
     row["library_ms"] = library_ms
     lib = f"{library_ms:.4f} ms" if library_ms is not None else f"null ({why_null})"
@@ -1568,8 +1610,8 @@ def _tv_level_planes(prev, curr, flow, level, p):
     from btcs_pnes_optical_flow_tpu_torch.ops import tvl1 as tv
 
     hh, ww = tv._pyramid_sizes(*prev.shape[1:], p)[level]
-    i0 = cvx.resize_bilinear_mm(cvx.gaussian_blur_reflect101(prev.float() / 255.0, 5, 0.8), hh, ww)
-    i1 = cvx.resize_bilinear_mm(cvx.gaussian_blur_reflect101(curr.float() / 255.0, 5, 0.8), hh, ww)
+    i0 = cvx.resize_bilinear_mm(cvx.gaussian_blur_reflect101(tv._unit(prev), 5, 0.8), hh, ww)
+    i1 = cvx.resize_bilinear_mm(cvx.gaussian_blur_reflect101(tv._unit(curr), 5, 0.8), hh, ww)
     src = torch.stack([i1, *tv._grad(i1)], dim=1)
     scale = p.scale_step ** level
     u, v = (cvx.resize_bilinear_mm(flow[:, k], hh, ww) * scale for k in range(2))
@@ -1606,12 +1648,26 @@ def phase_tvl1_kernels(tv_clip, device):
         rows[name] = _check_and_time(name, kid, TV_SOURCE, replaces, *calls[name],
                                      rtol=tol if rel else None,
                                      abs_tol=None if rel else tol, why=why)
-    # K5's yardstick: grid_sample with border padding and align_corners
-    # samples at clamp(x + u, 0, w - 1), as K5 does.  Alternating rounds.
+    lib_ms = _k5_yardstick(src, flow_cf)
+    b, c = src.shape[:2]
+    _set_bound(rows["warp_sample"], b * h * w, *_k5_cost(c), lib_ms)
+    _set_bound(rows["pd_chain"], b * h * w, *_k6_cost(p.n_iterations), None,
+               NO_LIBRARY["pd_chain"])
+    _k6_levels_and_depths(rows["pd_chain"], prev, curr, flow_cf, planes, p)
+    return rows, flow_plain
+
+
+def _k5_yardstick(src, flow_cf, reps=REPS):
+    """K5 against its library yardstick in alternating rounds: grid_sample
+    with border padding and align_corners samples at clamp(x + u, 0, w - 1),
+    as K5 does.  Returns grid_sample's median ms."""
     import torch.nn.functional as F
 
-    xs = torch.arange(w, device=device, dtype=torch.float32)
-    ys = torch.arange(h, device=device, dtype=torch.float32)[:, None]
+    from btcs_pnes_optical_flow_tpu_torch.ops import tvl1_cuda as tc
+
+    h, w = src.shape[-2:]
+    xs = torch.arange(w, device=src.device, dtype=torch.float32)
+    ys = torch.arange(h, device=src.device, dtype=torch.float32)[:, None]
     grid = torch.stack([(xs + flow_cf[:, 0]) * (2.0 / (w - 1)) - 1.0,
                         (ys + flow_cf[:, 1]) * (2.0 / (h - 1)) - 1.0], dim=-1)
 
@@ -1622,19 +1678,13 @@ def phase_tvl1_kernels(tv_clip, device):
     d_lib = float((sample() - tc.warp_sample_cf(src, flow_cf)).abs().max())
     k5_ms, lib_rounds = [], []
     for _ in range(3):
-        k5_ms.append(_median_ms(calls["warp_sample"][0]))
-        lib_rounds.append(_median_ms(sample))
-    lib_ms = statistics.median(lib_rounds)
+        k5_ms.append(_median_ms(lambda: tc.warp_sample_cf(src, flow_cf), reps))
+        lib_rounds.append(_median_ms(sample, reps))
     print(f"K5 vs its library yardstick F.grid_sample(bilinear, border, align_corners=True) on "
-          f"the same coordinates, alternating rounds: K5 {[round(x, 4) for x in k5_ms]} ms, "
-          f"grid_sample {[round(x, 4) for x in lib_rounds]} ms; max |grid_sample - kernel| "
-          f"{d_lib:.3e} (its own coordinate arithmetic)")
-    b, c = src.shape[:2]
-    _set_bound(rows["warp_sample"], b * h * w, *_k5_cost(c), lib_ms)
-    _set_bound(rows["pd_chain"], b * h * w, *_k6_cost(p.n_iterations), None,
-               NO_LIBRARY["pd_chain"])
-    _k6_levels_and_depths(rows["pd_chain"], prev, curr, flow_cf, planes, p)
-    return rows, flow_plain
+          f"the same coordinates at {tuple(src.shape)}, alternating rounds: K5 "
+          f"{[round(x, 4) for x in k5_ms]} ms, grid_sample {[round(x, 4) for x in lib_rounds]} "
+          f"ms; max |grid_sample - kernel| {d_lib:.3e} (its own coordinate arithmetic)")
+    return statistics.median(lib_rounds)
 
 
 def _k6_levels_and_depths(row, prev, curr, flow_cf, planes0, p):
@@ -1664,9 +1714,7 @@ def _k6_levels_and_depths(row, prev, curr, flow_cf, planes0, p):
         pl = planes0 if level == 0 else _tv_level_planes(prev, curr, flow_cf, level, p)[1]
         held(pl, tc.PD_DEPTH)
         ms = statistics.median([_median_ms(lambda: tc.pd_chain(*pl, *args)) for _ in range(2)])
-        px = pl[0].numel()
-        bound = max(px * _k6_cost(p.n_iterations)[0] / HBM_BYTES_PER_S,
-                    px * _k6_cost(p.n_iterations)[1] / FP32_OPS_PER_S) * 1e3
+        bound = _bound(pl[0].numel(), *_k6_cost(p.n_iterations))[0]
         levels[level] = ms
         print(f"K6 level {level} {tuple(pl[0].shape)}: {ms:.4f} ms per chain, bound "
               f"{bound:.4f} ms, share {100 * bound / ms:.1f}%, max_abs_err 0.0")
@@ -1787,6 +1835,18 @@ def _hd_level_rows(p, h, w):
     return out
 
 
+def _box_shares(p, h, w):
+    """Print each level's ROI box, its tile range and the share of the
+    level the range covers."""
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
+
+    for k, (hk, wk), box, tiles, it in _hd_level_rows(p, h, w):
+        cover = fb.tile_box(tiles, hk, wk) if tiles else (0, hk, 0, wk)
+        share = (cover[1] - cover[0]) * (cover[3] - cover[2]) / (hk * wk)
+        print(f"level {k} {hk}x{wk}: box {box}, tiles {tiles} covering {cover} "
+              f"({100 * share:.0f}% of the level), {it} iterations")
+
+
 def phase_hd(device, smi, rows):
     """BASELINE config 3 through the port's run_full: the 1080p kernels,
     agreement on the first chunk, a chunk sweep, the 10-minute run with a
@@ -1811,11 +1871,7 @@ def phase_hd(device, smi, rows):
           f"({base.nbytes / 1e6:.0f} MB), played forward and back")
     mask = fill_poly_mask(h, w, HD_ROI)
     p = fb.roi_dispatch_params(cfg.flow, h, w, mask[None])
-    for k, (hk, wk), box, tiles, it in _hd_level_rows(p, h, w):
-        cover = fb.tile_box(tiles, hk, wk) if tiles else (0, hk, 0, wk)
-        share = (cover[1] - cover[0]) * (cover[3] - cover[2]) / (hk * wk)
-        print(f"level {k} {hk}x{wk}: box {box}, tiles {tiles} covering {cover} "
-              f"({100 * share:.0f}% of the level), {it} iterations")
+    _box_shares(p, h, w)
     per_chunk = _launch_schedule(p, h, w, 1)
     want = dict(dict.fromkeys(fc.LAUNCHES, 0), poly_exp=4, update_matrices_bf16=9,
                 update_matrices_box_bf16=8, update_flow=9)
@@ -2415,6 +2471,363 @@ def _hd_profile(base, cfg, device, smi):
         raise AssertionError("K2's box form did not remove K4's host syncs")
 
 
+def _render_bilateral(n_frames, h, w, fps=HD_FPS, seed=3):
+    """bench.render_clip's law for each blob (x_frac, f) of BI_BLOBS: centre
+    x = w·x_frac + 40 e^(-0.05 t) sin(2π f t), y = h/2 + 18 e^(-0.05 t)
+    cos(2π f·2.9/3 t), 150 × a Gaussian of 30 × 26 px, on one texture of
+    N(0, 6) over 40."""
+    rng = np.random.default_rng(seed)
+    texture = 40 + rng.normal(0, 6, (h, w))
+    xx = np.arange(w, dtype=np.float64)[None, :]
+    yy = np.arange(h, dtype=np.float64)[:, None]
+    frames = np.empty((n_frames, h, w), np.uint8)
+    for i in range(n_frames):
+        t, img = i / fps, texture.copy()
+        for x_frac, f0 in BI_BLOBS:
+            cx = w * x_frac + 40 * np.exp(-0.05 * t) * np.sin(2 * np.pi * f0 * t)
+            cy = h * 0.5 + 18 * np.exp(-0.05 * t) * np.cos(2 * np.pi * f0 * 2.9 / 3.0 * t)
+            img += 150 * np.exp(-(((yy - cy) / 26.0) ** 2)) * np.exp(-(((xx - cx) / 30.0) ** 2))
+        frames[i] = np.clip(img, 0, 255).astype(np.uint8)
+    return frames
+
+
+def phase_bilateral(device, smi, rows):
+    """BASELINE config 2: two ROIs on one 1080p recording through run_full
+    under the JAX bench's flow config: the union boxes, one chunk's
+    launches, both ROIs' boxed features against the full frame and the
+    kernel path against the plain path on the first chunk, the 2-minute
+    run_full, and each ROI's features, PC1 and metric row against a run
+    with it alone (array_equal: each mask is reduced on its own)."""
+    from btcs_pnes_optical_flow_tpu_torch.config import FarnebackParams, PipelineConfig
+    from btcs_pnes_optical_flow_tpu_torch.models.flow import roi_body_flow_seq, to_device
+    from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_flow_stage, run_full
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
+    from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
+    from btcs_pnes_optical_flow_tpu_torch.ops.cvx import fill_poly_mask
+    from btcs_pnes_optical_flow_tpu_torch.utils.timing import StageTimer
+
+    h, w, n, rois = HD_H, HD_W, BI_FRAMES, list(BI_ROIS)
+    cfg = PipelineConfig(flow=dataclasses.replace(FarnebackParams(), **BENCH_FLOW))
+    print(f"== 16. BASELINE config 2: left/right ROIs, {n} frames of {h}x{w} (2 min at "
+          f"{HD_FPS:g} fps), {BENCH_FLOW}, chunks of {HD_CHUNK} pairs")
+    t0 = time.perf_counter()
+    base = _render_bilateral(HD_BASE_FRAMES, h, w)
+    print(f"two-blob base {base.shape} rendered in {time.perf_counter() - t0:.1f} s, played "
+          f"forward and back; blobs (x/w, Hz) {BI_BLOBS}")
+    masks = np.stack([fill_poly_mask(h, w, roi) for roi in rois])
+    xs = [np.nonzero(m.any(0))[0] for m in masks]
+    print(f"ROIs: x {xs[0].min()}..{xs[0].max()} and {xs[1].min()}..{xs[1].max()}, "
+          f"{masks[0].sum()} and {masks[1].sum()} px, gap {xs[1].min() - xs[0].max() - 1} px")
+    if (masks[0] & masks[1]).any() or not xs[0].max() < xs[1].min():
+        raise AssertionError("the two ROIs overlap or touch")
+    p = fb.roi_dispatch_params(cfg.flow, h, w, masks)
+    print("the union of the two masks boxed per level (config 3's 1080p ROI: 43/58/82% of "
+          "levels 0-2):")
+    _box_shares(p, h, w)
+    per_chunk = _launch_schedule(p, h, w, 1)
+    fc.reset_launch_counts()
+    run_flow_stage(_pingpong_source(base, HD_CHUNK + 1), _skeleton(HD_CHUNK + 1), rois, cfg,
+                   HD_CHUNK, device=device)
+    launches = dict(fc.LAUNCHES)
+    print(f"launches of one {HD_CHUNK}-pair chunk through run_flow_stage: {launches} "
+          f"(expected from the union boxes {per_chunk})")
+    if launches != per_chunk or not launches["update_matrices_box_bf16"]:
+        raise AssertionError("the bilateral chunk's launches differ from the union-box schedule")
+    for name, count in launches.items():
+        if count:
+            rows[name]["bilateral_chunk_launches"] = count
+
+    ex = np.tile(np.array([np.cos(THETA), -np.sin(THETA)], np.float32), (HD_CHUNK, 1))
+    ey = np.tile(np.array([np.sin(THETA), np.cos(THETA)], np.float32), (HD_CHUNK, 1))
+    frames, exd, eyd, masks_d = to_device(base[: HD_CHUNK + 1], ex, ey, masks, device)
+    boxed, _ = roi_body_flow_seq(frames, exd, eyd, masks_d, p)
+    full, _ = roi_body_flow_seq(frames, exd, eyd, masks_d, cfg.flow)
+    d_roi = [max(float((a[:, r] - b[:, r]).abs().max()) for a, b in zip(boxed, full))
+             for r in range(2)]
+    print(f"ROI-dispatched vs full-frame features on the first chunk, left / right: max |d| "
+          f"{d_roi[0]:.3e} / {d_roi[1]:.3e} px/frame (bar 0.0)")
+    if d_roi != [0.0, 0.0]:
+        raise AssertionError("bilateral ROI features differ from the full-frame ones")
+    d = float((fb.farneback_flow_seq(frames, p)
+               - fb.farneback_flow_seq(frames, p, kernels=False)).abs().max())
+    print(f"kernel vs plain path on the union boxes, {HD_CHUNK} pairs: max |dflow| {d:.3e} px "
+          f"(bar 0.0)")
+    if d != 0.0:
+        raise AssertionError("the bilateral kernel path disagrees with the plain path")
+    del frames, exd, eyd, masks_d, boxed, full
+
+    skel = _skeleton(n)
+    n_chunks = -(-(n - 1) // HD_CHUNK)
+    want = _launch_schedule(p, h, w, n_chunks)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fc.reset_launch_counts()
+    timer = StageTimer(device)
+    t0 = time.perf_counter()
+    flow, pc1, mets = run_full(_pingpong_source(base, n), skel, rois, cfg, HD_CHUNK,
+                               device=device, timer=timer)
+    wall = time.perf_counter() - t0
+    launches = dict(fc.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"run_full, both ROIs: launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError("the bilateral run's launches differ from the union-box schedule")
+    for name, count in launches.items():
+        if count:
+            rows[name]["bilateral_launches"] = count
+    if (flow.vx.shape != (n, 2) or not np.isnan(flow.vx[0]).all()
+            or not np.isfinite(flow.vx[1:]).all() or pc1.shape != (n, 2) or len(mets) != 2):
+        raise AssertionError(f"features {flow.vx.shape}, PC1 {pc1.shape}, {len(mets)} metric "
+                             "rows; NaN is expected at frame 0 only")
+    if any(int(m.status) for m in mets) or (np.isfinite(pc1).sum(0) < n - 100).any():
+        raise AssertionError(f"metric status {[int(m.status) for m in mets]}, finite PC1 "
+                             f"{np.isfinite(pc1).sum(0)}")
+    apart = min(float(np.abs(getattr(flow, nm)[1:, 0] - getattr(flow, nm)[1:, 1]).max())
+                for nm in ("vx", "vy", "mag"))
+    print(f"left vs right features: smallest max |d| over vx/vy/mag {apart:.4f} px/frame "
+          "(a mask mix-up would make them equal)")
+    if not apart > 1e-3:
+        raise AssertionError("the two ROIs' features are equal")
+    st = {k: round(v, 4) for k, v in timer.times.items()}
+    print(f"bilateral run_full: {wall:.4f} s, {n / wall:.2f} frames/s end to end "
+          f"({n / timer.times['flow']:.2f} through the flow stage); stage seconds {st}; peak "
+          f"device memory {peak:.2f} GiB on [{smi}]")
+    for side, m in zip(("left", "right"), mets):
+        print(f"metric row, {side}: " + ", ".join(
+            f"{f} {float(getattr(m, f)):.6g}" for f in m._fields))
+
+    for r, side in enumerate(("left", "right")):
+        one, one_pc1, one_mets = run_full(_pingpong_source(base, n), skel, [rois[r]], cfg,
+                                          HD_CHUNK, device=device)
+        same = {nm: np.array_equal(getattr(flow, nm)[:, r], getattr(one, nm)[:, 0],
+                                   equal_nan=True) for nm in ("vx", "vy", "mag")}
+        same["pc1"] = np.array_equal(pc1[:, r], one_pc1[:, 0], equal_nan=True)
+        same["metrics"] = all(np.array_equal(float(a), float(b), equal_nan=True)
+                              for a, b in zip(mets[r], one_mets[0]))
+        print(f"{side} ROI, the two-ROI run vs a run with it alone: array_equal {same}")
+        if not all(same.values()):
+            raise AssertionError(f"the {side} ROI's results depend on the other ROI")
+
+
+def _texture(h, w, rng, shift=(0.0, 0.0)):
+    """tests/test_torch_tvl1.py's texture, shifted by (x, y) px, with its
+    own unit noise."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    xx, yy = xx + shift[0], yy + shift[1]
+    img = (np.sin(xx / 6) * np.cos(yy / 7) + 0.6 * np.sin(xx / 11 + yy / 5)) * 55 + 128
+    return np.clip(img + rng.normal(0, 1, (h, w)), 0, 255).astype(np.uint8)
+
+
+@contextlib.contextmanager
+def _eps_loop_spy(log):
+    """Record each epsilon-loop call of ops/tvl1.py (pd_chain_plain with
+    epsilon > 0) as (level shape, iterations run, seconds): the iterations
+    counted by its divergence calls (two per iteration), the seconds fenced
+    by a synchronise on each side."""
+    from btcs_pnes_optical_flow_tpu_torch.ops import tvl1 as tv
+
+    chain, div = tv.pd_chain_plain, tv._div
+    divs = [0]
+
+    def counted_div(*args):
+        divs[0] += 1
+        return div(*args)
+
+    def spy(u, v, *args, epsilon=0.0):
+        if epsilon <= 0:
+            return chain(u, v, *args, epsilon=epsilon)
+        torch.cuda.synchronize()
+        divs[0] = 0
+        t0 = time.perf_counter()
+        out = chain(u, v, *args, epsilon=epsilon)
+        torch.cuda.synchronize()
+        log.append((tuple(u.shape[-2:]), divs[0] // 2, time.perf_counter() - t0))
+        return out
+
+    tv.pd_chain_plain, tv._div = spy, counted_div
+    try:
+        yield
+    finally:
+        tv.pd_chain_plain, tv._div = chain, div
+
+
+def _tv_clinical(h, w, eps_levels, device, smi, rows):
+    """TV-L1 on TV_PAIRS pairs of render_clip(seed=2) at h x w: the engine
+    table, launches, K5 and K6 at every level where they run against their
+    plain versions and timed, the call against the plain path, the epsilon
+    loop's iterations, syncs and share, frames/s and peak memory."""
+    from bench import render_clip
+    from btcs_pnes_optical_flow_tpu_torch.ops import tvl1 as tv
+    from btcs_pnes_optical_flow_tpu_torch.ops import tvl1_cuda as tc
+
+    p = tv.TVL1Params()
+    tag = f"{h}x{w}"
+    clip = render_clip(TV_PAIRS + 1, h, w, seed=2)
+    prev = torch.as_tensor(clip[:-1], device=device)
+    curr = torch.as_tensor(clip[1:], device=device)
+    del clip
+    sizes = tv._pyramid_sizes(h, w, p)
+    on_eps = [k for k, s in enumerate(sizes) if not tv._resident_ok(*s, p)]
+    print(f"-- {tag}, {TV_PAIRS} pairs: engines by level (_resident_ok at {p.n_iterations} "
+          f"iterations): " + ", ".join(
+              f"{k} {hh}x{ww} {'epsilon loop' if k in on_eps else 'K6'}"
+              for k, (hh, ww) in enumerate(sizes)))
+    if on_eps != eps_levels:
+        raise AssertionError(f"{tag}: levels {on_eps} take the epsilon loop, not {eps_levels}")
+
+    tv.tvl1_flow(prev, curr, p)  # warm-up (allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tc.reset_launch_counts()
+    t0 = time.perf_counter()
+    flow = tv.tvl1_flow(prev, curr, p)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    flow_h = flow.cpu()
+    host_s = time.perf_counter() - t0
+    launches = dict(tc.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    chains = p.n_warps * (len(sizes) - len(on_eps))
+    want = {"warp_sample": len(sizes) * p.n_warps, "pd_chain": chains,
+            "pd_block": chains * len(tc.pd_schedule(p.n_iterations))}
+    print(f"launches {launches} (expected {want}: {len(sizes)} levels x {p.n_warps} warps of "
+          f"K5, K6 chains on the {len(sizes) - len(on_eps)} resident levels)")
+    if launches != want or not launches["warp_sample"] or not launches["pd_block"]:
+        raise AssertionError(f"{tag}: TV-L1 launches differ from the schedule")
+    rows["warp_sample"][f"tv_{tag}_launches"] = launches["warp_sample"]
+    rows["pd_chain"][f"tv_{tag}_launches"] = launches["pd_block"]
+    if flow_h.shape != (TV_PAIRS, h, w, 2) or not torch.isfinite(flow_h).all():
+        raise AssertionError(f"{tag}: flow {tuple(flow_h.shape)}, or not finite")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = tv.tvl1_flow(prev, curr, p, kernels=False).cpu()
+    plain_s = time.perf_counter() - t0
+    d = float((flow_h - plain).abs().max())
+    print(f"kernel vs plain path on the card: max |dflow| {d:.3e} px (bar {FLOW_TOL_PX}); "
+          f"|flow| max {float(flow_h.abs().max()):.4f} px")
+    if not d <= FLOW_TOL_PX:
+        raise AssertionError(f"{tag}: the TV-L1 kernel path disagrees with the plain path")
+    del plain
+
+    flow_cf = flow.movedim(-1, 1).contiguous()
+    del flow
+    k5_tol = next(k for k in TV_KERNELS if k[0] == "warp_sample")
+    k6_tol = next(k for k in TV_KERNELS if k[0] == "pd_chain")
+    args = (p.n_iterations, p.tau, p.lambda_, p.theta)
+    levels = {}
+    for k in range(len(sizes)):
+        src, planes = _tv_level_planes(prev, curr, flow_cf, k, p)
+        fl = torch.stack(planes[:2], 1)
+        px = planes[0].numel()
+        name, kid, replaces, tol, why = k5_tol
+        row = _check_and_time(name, kid, TV_SOURCE, replaces,
+                              lambda: tc.warp_sample_cf(src, fl),
+                              lambda: tv.warp_sample_cf_plain(src, fl),
+                              rtol=tol, abs_tol=None, why=why, reps=TV_REPS)
+        bound, by = _bound(px, *_k5_cost(src.shape[1]))
+        entry = {"shape": list(planes[0].shape), "k5_ms": row["ms"], "k5_plain_ms":
+                 row["plain_ms"], "k5_bound_ms": bound, "k5_max_abs_err": row["max_abs_err"]}
+        if k == 0:
+            entry["k5_library_ms"] = _k5_yardstick(src, fl, TV_REPS)
+        print(f"  level {k} {tuple(planes[0].shape)}: K5 bound {bound:.4f} ms by {by}, share "
+              f"{100 * bound / row['ms']:.1f}%")
+        if k in on_eps:
+            print(f"  level {k}: no K6 (the epsilon loop)")
+        else:
+            name, kid, replaces, tol, why = k6_tol
+            row = _check_and_time(name, kid, TV_SOURCE, replaces,
+                                  lambda: tc.pd_chain(*planes, *args),
+                                  lambda: tv.pd_chain_plain(*planes, *args),
+                                  rtol=None, abs_tol=tol, why=why, reps=TV_REPS)
+            bound, by = _bound(px, *_k6_cost(p.n_iterations))
+            entry.update(k6_ms=row["ms"], k6_plain_ms=row["plain_ms"], k6_bound_ms=bound,
+                         k6_max_abs_err=row["max_abs_err"])
+            print(f"  level {k}: K6 bound {bound:.4f} ms by {by}, share "
+                  f"{100 * bound / row['ms']:.1f}% per chain")
+        levels[k] = entry
+        del src, planes, fl
+    rows["warp_sample"][f"tv_{tag}_levels"] = levels
+    del flow_cf
+
+    log = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _eps_loop_spy(log):
+        tv.tvl1_flow(prev, curr, p)
+    torch.cuda.synchronize()
+    spy_s = time.perf_counter() - t0
+    for k in on_eps:
+        its = [n for shape, n, _ in log if shape == sizes[k]]
+        ms = [1e3 * s for shape, _, s in log if shape == sizes[k]]
+        print(f"epsilon loop, level {k} {sizes[k]}: iterations by warp {its} of "
+              f"{p.n_iterations} (epsilon {p.epsilon}), ms by warp {[round(x, 2) for x in ms]}")
+    eps_s = sum(s for *_, s in log)
+    if len(log) != p.n_warps * len(on_eps):
+        raise AssertionError(f"{tag}: {len(log)} epsilon-loop calls recorded")
+    counts = dict.fromkeys(("cudaStreamSynchronize", "aten::_local_scalar_dense"), 0)
+    busy = phase_profile(f"   {tag}: device time by kernel, one tvl1_flow call", lambda:
+                         tv.tvl1_flow(prev, curr, p), counts=counts)
+    n_its = sum(n for _, n, _ in log)
+    print(f"epsilon loop: {n_its} iterations in {len(log)} calls, {eps_s:.4f} s of a "
+          f"{spy_s:.4f} s call fenced around each of them ({100 * eps_s / spy_s:.1f}%); host "
+          f"events in one unfenced call: {counts} (one read-back per iteration expected)")
+    busy_text = (f", device busy {busy:.3f} ms ({100 * busy / (1e3 * card_s):.1f}% of the call)"
+                 if busy is not None else "")
+    print(f"TV-L1 {tag}: {TV_PAIRS} pairs in {host_s:.4f} s with the flow copied to the host "
+          f"({TV_PAIRS / host_s:.2f} frames/s), {card_s:.4f} s on the card, fenced "
+          f"({TV_PAIRS / card_s:.2f} frames/s){busy_text}; plain path {plain_s:.4f} s; peak "
+          f"device memory {peak:.2f} GiB on [{smi}]")
+    rows["pd_chain"][f"tv_{tag}_eps"] = {"iterations": n_its, "calls": len(log),
+                                         "share": eps_s / spy_s}
+
+
+def phase_tvl1_clinical(device, smi, rows):
+    """BASELINE config 5: TV-L1 at 720x1280 and 1080x1920 (_tv_clinical),
+    the card against the CPU where level 0 takes the epsilon loop, and the
+    translation of a textured 1080p frame."""
+    from bench import render_clip
+    from btcs_pnes_optical_flow_tpu_torch.ops import tvl1 as tv
+
+    p = tv.TVL1Params()
+    print(f"== 17. BASELINE config 5: TV-L1 at {' and '.join(f'{h}x{w}' for h, w in TV_CLINICAL)}"
+          f", {p}")
+    for (h, w), eps_levels in TV_CLINICAL.items():
+        t0 = time.perf_counter()
+        _tv_clinical(h, w, eps_levels, device, smi, rows)
+        torch.cuda.empty_cache()
+        print(f"{h}x{w}: {time.perf_counter() - t0:.1f} s")
+
+    h, w = TV_EPS_SIZE
+    pr = dataclasses.replace(p, pd_engine="resident")
+    if tv._resident_ok(h, w, pr):
+        raise AssertionError(f"level 0 of {h}x{w} does not take the epsilon loop")
+    small = render_clip(3, h, w, seed=2)
+    f_cpu = tv.tvl1_flow(torch.as_tensor(small[:-1]), torch.as_tensor(small[1:]), pr)
+    f_gpu = tv.tvl1_flow(torch.as_tensor(small[:-1], device=device),
+                         torch.as_tensor(small[1:], device=device), pr).cpu()
+    d = float((f_cpu - f_gpu).abs().max())
+    print(f"card vs CPU, 2 pairs of {h}x{w} (level 0 on the epsilon loop, pd_engine "
+          f"'resident' on both): max |dflow| {d:.3e} px (bar {FLOW_TOL_PX}; the CPU's torch.sqrt "
+          f"is not correctly rounded, and the loop's mean is taken in another order, so its "
+          f"exit may move by an iteration)")
+    if not d <= FLOW_TOL_PX:
+        raise AssertionError("TV-L1 on the card disagrees with the CPU")
+
+    h, w = max(TV_CLINICAL)
+    rng = np.random.default_rng(0)
+    f0 = torch.as_tensor(_texture(h, w, rng), device=device)
+    f1 = torch.as_tensor(_texture(h, w, rng, shift=TV_SHIFT), device=device)
+    inner = tv.tvl1_flow(f0, f1, p).cpu().numpy()[12:-12, 12:-12]
+    # I1 sampled at x + flow matches I0: the flow is minus the shift.
+    epe = float(np.sqrt((inner[..., 0] + TV_SHIFT[0]) ** 2
+                        + (inner[..., 1] + TV_SHIFT[1]) ** 2).mean())
+    print(f"translation by {TV_SHIFT} px of a textured {h}x{w} frame: interior EPE {epe:.4f} "
+          f"px (bar < {TV_EPE_PX})")
+    if not epe < TV_EPE_PX:
+        raise AssertionError("TV-L1 misses the 1080p translation")
+
+
 def main():
     smi = phase_device()
     from bench import render_clip
@@ -2457,7 +2870,9 @@ def main():
                         (12, lambda: phase_bench_config(clip, device, smi, rows, pc1_fp32)),
                         (13, lambda: phase_sharded(clip, device, smi, rows)),
                         (14, lambda: phase_metric_head(device, smi, *out[9])),
-                        (15, lambda: phase_hd(device, smi, rows))):
+                        (15, lambda: phase_hd(device, smi, rows)),
+                        (16, lambda: phase_bilateral(device, smi, rows)),
+                        (17, lambda: phase_tvl1_clinical(device, smi, rows))):
         t0 = time.perf_counter()
         out[number] = run()
         print(f"phase {number}: {time.perf_counter() - t0:.1f} s")

@@ -407,6 +407,68 @@ def test_run_full_writes_its_csvs_on_the_card(card, tmp_path):
         assert np.array_equal(num(sm[1][2 + i]), float(getattr(mets[0], f)), equal_nan=True)
 
 
+def _two_blob_inputs():
+    """17 frames of 128×512 with two blobs moving at different rates, body
+    axes, and a left and a right ROI 210 px apart whose union box leaves
+    level 0 boxed (BASELINE config 2 in small)."""
+    from btcs_pnes_optical_flow_tpu_torch.dataio.contracts import Skeleton
+
+    n, h, w = 17, 128, 512
+    rng = np.random.default_rng(19)
+    yy, xx = np.mgrid[0:h, 0:w]
+    texture = 30 * np.sin(xx / 6.3) * np.cos(yy / 7.1) + rng.normal(0, 4, (h, w))
+    frames = np.stack([np.clip(100 + texture + sum(120 * np.exp(
+        -(((xx - cx - 6 * np.sin(i / k)) / 14) ** 2 + ((yy - 64) / 10) ** 2))
+        for cx, k in ((120, 2.0), (390, 3.0))), 0, 255) for i in range(n)]).astype(np.uint8)
+    t = np.arange(n) / 30.0
+    skel = Skeleton(time_all=t, fps=30.0, ex=np.tile([np.cos(0.3), -np.sin(0.3)], (n, 1)),
+                    ey=np.tile([np.sin(0.3), np.cos(0.3)], (n, 1)))
+    rois = [np.array([[90.0, 40.0], [150.0, 42.0], [148.0, 88.0], [92.0, 86.0]]),
+            np.array([[360.0, 40.0], [420.0, 42.0], [418.0, 88.0], [362.0, 86.0]])]
+    return frames, skel, rois
+
+
+def _two_roi_runs(device):
+    """run_flow_stage with both ROIs (ROI-dispatched over their union
+    boxes), with every level whole (boxes past the frame) and with each ROI
+    alone; returns (both, whole, [alone])."""
+    import dataclasses
+
+    from btcs_pnes_optical_flow_tpu_torch.config import PipelineConfig
+    from btcs_pnes_optical_flow_tpu_torch.dataio.video import ArraySource
+    from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_flow_stage
+
+    frames, skel, rois = _two_blob_inputs()
+    cfg = PipelineConfig()
+    whole = dataclasses.replace(cfg, flow=dataclasses.replace(
+        cfg.flow, roi_active_px=((-10**6, 10**6, -10**6, 10**6),) * 4))
+
+    def run(rs, c=cfg):
+        return run_flow_stage(ArraySource(frames, 30.0), skel, rs, c, chunk_pairs=8,
+                              device=device)
+
+    fc.reset_launch_counts()
+    both = run(rois)
+    launches = dict(fc.LAUNCHES)
+    return both, launches, run(rois, whole), [run([r]) for r in rois]
+
+
+def test_run_flow_stage_two_rois_on_the_card(card):
+    """Two ROIs through the ROI-dispatched flow stage on the card: level 0
+    runs boxed over their union (K2 and K3 in box mode), both ROIs'
+    features equal the full-frame flow's (0.0) and a run of each ROI alone
+    (each mask is reduced on its own), and the two differ."""
+    both, launches, whole, alone = _two_roi_runs(card)
+    assert launches["update_matrices_box"] > 0 and launches["update_matrices_tiles"] == 0
+    assert both.vx.shape == (17, 2)
+    for name in ("vx", "vy", "mag"):
+        a = getattr(both, name)
+        assert np.array_equal(a, getattr(whole, name), equal_nan=True), name
+        for r in range(2):
+            assert np.array_equal(a[:, r], getattr(alone[r], name)[:, 0], equal_nan=True)
+        assert np.abs(a[1:, 0] - a[1:, 1]).max() > 1e-3
+
+
 def _nan_signals(shape, seed):
     x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
     x[..., 0] = np.nan
@@ -654,6 +716,75 @@ def test_tvl1_flow_kernels_match_plain(card):
     assert clips.tolist() == [0, 0]
     plain = tv.tvl1_flow(prev, curr, p, kernels=False)
     assert float((kern - plain).abs().max()) <= 1e-3  # the path's px bar
+
+
+def test_warp_sample_kernel_at_1080p(card):
+    """K5 at BASELINE config 5's full frame, 1080×1920 with three channels,
+    bit-equal to its plain version."""
+    b, h, w = 2, 1080, 1920
+    src = _img((b, 3, h, w), 26).to(card) / 255.0
+    flow = _flow_off_every_edge(b, h, w, 27).to(card)
+    assert torch.equal(tc.warp_sample_cf(src, flow), tv.warp_sample_cf_plain(src, flow))
+
+
+def test_pd_chain_kernel_at_the_1080p_level_2_shape(card):
+    """K6's one resident level of 1080×1920 TV-L1 (270×480), bit-equal."""
+    p = tv.TVL1Params()
+    assert [tv._resident_ok(*s, p) for s in tv._pyramid_sizes(1080, 1920, p)] == [False, False,
+                                                                                   True]
+    _check_chain(_chain_planes((2, 270, 480), 28, card), p.n_iterations)
+
+
+def test_tvl1_flow_at_720p_kernels_match_plain(card):
+    """tvl1_flow at 720×1280 with the default parameters: level 0 runs the
+    epsilon loop, levels 1–2 run K6; the kernel path within the path's px
+    bar of the plain path."""
+    h, w = 720, 1280
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+
+    def texture(dx, dy, seed):
+        img = (np.sin((xx + dx) / 6) * np.cos((yy + dy) / 7)
+               + 0.6 * np.sin((xx + dx) / 11 + (yy + dy) / 5)) * 55 + 128
+        noise = np.random.default_rng(seed).normal(0, 1, (h, w))
+        return torch.as_tensor(np.clip(img + noise, 0, 255).astype(np.uint8)).to(card)
+
+    prev, curr = texture(0.0, 0.0, 29), texture(1.2, -0.7, 30)
+    p = tv.TVL1Params()
+    tc.reset_launch_counts()
+    kern = tv.tvl1_flow(prev[None], curr[None], p)
+    assert tc.LAUNCHES == {"warp_sample": 15, "pd_chain": 10,
+                           "pd_block": 10 * len(tc.pd_schedule(p.n_iterations))}
+    plain = tv.tvl1_flow(prev[None], curr[None], p, kernels=False)
+    assert kern.shape == (1, h, w, 2) and torch.isfinite(kern).all()
+    assert float((kern - plain).abs().max()) <= 1e-3  # the path's px bar
+
+
+def test_tvl1_scales_frames_as_the_cpu(card):
+    """TV-L1's frames / 255 gives the CPU's bits on the card for every
+    pixel value (a CUDA tensor divided by a Python scalar is multiplied by
+    the scalar's reciprocal, an ulp off for 126 of the 256 values)."""
+    frames = torch.arange(256, dtype=torch.uint8).reshape(1, 16, 16)
+    assert torch.equal(tv._unit(frames.to(card)).cpu(), tv._unit(frames))
+
+
+def test_tvl1_card_matches_cpu_where_level_0_takes_the_epsilon_loop(card):
+    """tvl1_flow with the fixed-length chain asked for on both sides, at
+    112×896, where level 0 runs the epsilon loop and levels 1–2 K6 (on the
+    CPU their plain chain): the card within the path's px bar of the CPU."""
+    import dataclasses
+
+    from bench import render_clip
+
+    clip = render_clip(3, 112, 896, seed=2)
+    p = dataclasses.replace(tv.TVL1Params(), pd_engine="resident")
+    assert not tv._resident_ok(112, 896, p) and tv._resident_ok(56, 448, p)
+    cpu = tv.tvl1_flow(torch.as_tensor(clip[:-1]), torch.as_tensor(clip[1:]), p)
+    gpu = tv.tvl1_flow(torch.as_tensor(clip[:-1]).to(card), torch.as_tensor(clip[1:]).to(card), p)
+    # The CPU's torch.sqrt is not correctly rounded (1.9e-4 px here), and
+    # the epsilon loop's mean is taken in another order, so its exit may
+    # move by an iteration.  Before frames were divided on the card as on
+    # the CPU, 1.1e-3 px.
+    assert float((gpu.cpu() - cpu).abs().max()) <= 1e-3
 
 
 def test_tvl1_wrappers_reject_bad_inputs(card):
