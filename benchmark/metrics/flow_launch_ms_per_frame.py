@@ -1,0 +1,8 @@
+"""Milliseconds per frame of the flow stage's "flow.launch" spans
+(enqueueing the chunk's flow): host time with no fence, summed by the
+program's StageTimer over the timed calls, over their frames."""
+
+
+def read(ctx):
+    s = ctx.stage_seconds("flow.launch")
+    return None if s is None or not ctx.frames else 1e3 * s / ctx.frames

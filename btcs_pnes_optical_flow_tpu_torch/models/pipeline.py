@@ -46,6 +46,7 @@ from btcs_pnes_optical_flow_tpu_torch.models.flow import (
 )
 from btcs_pnes_optical_flow_tpu_torch.ops.cvx import fill_poly_mask
 from btcs_pnes_optical_flow_tpu_torch.ops.farneback import roi_dispatch_params
+from btcs_pnes_optical_flow_tpu_torch.utils import timing
 from btcs_pnes_optical_flow_tpu_torch.utils.timing import StageTimer, logger
 
 # Chunks in flight before the oldest is resolved on the host: the device
@@ -122,6 +123,7 @@ def run_flow_stage(
     checkpoint_dir: Optional[str] = None,
     *,
     device,
+    timer: Optional[StageTimer] = None,
 ) -> FlowStageResult:
     """Stage A: video + body axes + ROIs → per-frame flow features.
 
@@ -131,6 +133,14 @@ def run_flow_stage(
     projected on frame i's axes.  Unless ``config.flow`` carries boxes
     already, the flow is ROI-dispatched (``roi_dispatch_params``): the
     ROI means equal the full-frame ones.
+
+    A ``timer`` collects host spans (``StageTimer.span``, no fence) of
+    each computed chunk: "flow.copy" (the frames and axes to the device),
+    "flow.launch" (enqueueing its flow; the span's count is the chunks
+    computed), "flow.readback" (the clip count, the three feature reads
+    and the NaN mask) and "flow.store" (the checkpoint write).
+    "flow.decode_wait" holds each wait on the prefetch queue: once per
+    chunk handed over, resumed or not, and once at the end of the stream.
     """
     device = torch.device(device)
     src = video if isinstance(video, VideoSource) else open_source(video, fps=skeleton.fps)
@@ -165,20 +175,23 @@ def run_flow_stage(
         if valid is None:  # resumed from checkpoint
             vx, vy, mg = feats["vx"], feats["vy"], feats["mag"]
         else:
-            n_clipped = int(torch.count_nonzero(clips[:n_pairs]))
-            if n_clipped:
-                raise RuntimeError(
-                    f"flow chunk @{first}: {n_clipped} pairs clipped; the direct-sample "
-                    "warp never clips, so this is a fault")
-            vx = feats.vx[:n_pairs].cpu().numpy()
-            vy = feats.vy[:n_pairs].cpu().numpy()
-            mg = feats.mag[:n_pairs].cpu().numpy()
-            inv = ~valid[:n_pairs]
-            vx[inv] = np.nan
-            vy[inv] = np.nan
-            mg[inv] = np.nan
+            with timing.span(timer, "flow.readback"):
+                n_clipped = int(torch.count_nonzero(clips[:n_pairs]))
+                if n_clipped:
+                    raise RuntimeError(
+                        f"flow chunk @{first}: {n_clipped} pairs clipped; the direct-sample "
+                        "warp never clips, so this is a fault")
+                vx = feats.vx[:n_pairs].cpu().numpy()
+                vy = feats.vy[:n_pairs].cpu().numpy()
+                mg = feats.mag[:n_pairs].cpu().numpy()
+                inv = ~valid[:n_pairs]
+                vx[inv] = np.nan
+                vy[inv] = np.nan
+                mg[inv] = np.nan
             if store is not None:
-                store.save(first, vx=vx, vy=vy, mag=mg, t=t_chunk, skel=sk, ok=valid[:n_pairs])
+                with timing.span(timer, "flow.store"):
+                    store.save(first, vx=vx, vy=vy, mag=mg, t=t_chunk, skel=sk,
+                               ok=valid[:n_pairs])
         feats_vx.append(vx)
         feats_vy.append(vy)
         feats_mag.append(mg)
@@ -191,7 +204,13 @@ def run_flow_stage(
             first, pairs_done, pairs_done / dt if dt > 0 else 0.0, 0, 0,
         )
 
-    for first, frames, pos in ChunkPrefetcher(src, chunk_pairs):
+    chunks = iter(ChunkPrefetcher(src, chunk_pairs))
+    while True:
+        with timing.span(timer, "flow.decode_wait"):
+            chunk = next(chunks, None)
+        if chunk is None:
+            break
+        first, frames, pos = chunk
         all_pos.extend(pos if first == 0 else pos[1:])
         n_frames = first + len(frames)
         n_pairs = len(frames) - 1
@@ -226,13 +245,11 @@ def run_flow_stage(
         else:
             ex_safe = np.where(ok[:, None], ex, 0.0).astype(np.float32)
             ey_safe = np.where(ok[:, None], ey, 0.0).astype(np.float32)
-            feats, clips = roi_body_flow_seq(
-                torch.as_tensor(frames).to(device),
-                torch.as_tensor(ex_safe).to(device),
-                torch.as_tensor(ey_safe).to(device),
-                masks_dev,
-                config.flow,
-            )
+            with timing.span(timer, "flow.copy"):
+                inputs = [torch.as_tensor(a).to(device) for a in (frames, ex_safe, ey_safe)]
+            with timing.span(timer, "flow.launch"):
+                feats, clips = roi_body_flow_seq(*inputs, masks_dev, config.flow)
+            del inputs  # the next chunk's copy may reuse their memory
             valid = np.zeros(chunk_pairs, bool)
             valid[:n_pairs] = ok[:n_pairs]
             pending.append((first, n_pairs, valid, t_chunk[:n_pairs], sk[:n_pairs], feats, clips))
@@ -319,14 +336,15 @@ def run_full(
 
     ``checkpoint_dir`` is the flow stage's chunk store (``run_flow_stage``).
     A ``timer`` collects the wall time of the stages "flow" (items:
-    frames), "pc1" and "metrics" (items: ROIs), fenced on a CUDA device.
+    frames), "pc1" and "metrics" (items: ROIs), fenced on a CUDA device,
+    and the flow stage's spans (``run_flow_stage``).
     """
     def stage(name):
         return timer.timed(name) if timer is not None else contextlib.nullcontext()
 
     with stage("flow"):
         flow = run_flow_stage(video, skeleton, roi_polygons, config, chunk_pairs, flow_csv,
-                              checkpoint_dir, device=device)
+                              checkpoint_dir, device=device, timer=timer)
     with stage("pc1"):
         pc1 = run_pc1_stage(flow, config, pc1_csv, device=device)
     with stage("metrics"):

@@ -34,6 +34,7 @@ from btcs_pnes_optical_flow_tpu_torch.parallel.mesh import (
     cohort_sharding,
     replicated,
 )
+from btcs_pnes_optical_flow_tpu_torch.utils import timing
 from btcs_pnes_optical_flow_tpu_torch.utils.device import resolve_device
 
 # Chunks in flight per device before the oldest is read back (as
@@ -127,7 +128,7 @@ def cohort_step(
                       cohort_mean_mag=torch.nanmean(mag, dim=(0, 1)))
 
 
-def cohort_flow_sharded(items, flows, config, chunk_pairs: int, mesh):
+def cohort_flow_sharded(items, flows, config, chunk_pairs: int, mesh, timer=None):
     """Stage A of ``run_cohort`` with the video axis split over ``mesh``.
 
     Eligible when every item is a 3-D uint8 clip, all NumPy arrays or all
@@ -141,7 +142,9 @@ def cohort_flow_sharded(items, flows, config, chunk_pairs: int, mesh):
     Per-video semantics (NaN frame 0, invalid axes masked, one chunk shape
     with the tail padded) are ``run_flow_stage``'s, and each video's
     features do not depend on the mesh; a non-zero clip count raises, as
-    there.
+    there.  A ``timer`` collects ``run_flow_stage``'s spans "flow.copy"
+    (a tail chunk's frame padding, a device concatenation, falls in it),
+    "flow.launch" and "flow.readback", once per video per chunk.
     """
     devs = as_mesh(mesh).axis_devices("data")
     n = len(items)
@@ -186,35 +189,39 @@ def cohort_flow_sharded(items, flows, config, chunk_pairs: int, mesh):
 
     def resolve(entry):
         i, s, b_eff, feats, clips = entry
-        n_clipped = int(torch.count_nonzero(clips[:b_eff]))
-        if n_clipped:
-            raise RuntimeError(f"cohort item {items[i].name} chunk @{s}: {n_clipped} pairs "
-                               "clipped; the direct-sample warp never clips, so this is a fault")
-        inv = ~ok_p[i][s : s + b_eff]
-        for dst, f in zip(feats_all[i], feats):
-            vals = f[:b_eff].cpu().numpy()
-            vals[inv] = np.nan
-            dst[s : s + b_eff] = vals
+        with timing.span(timer, "flow.readback"):
+            n_clipped = int(torch.count_nonzero(clips[:b_eff]))
+            if n_clipped:
+                raise RuntimeError(f"cohort item {items[i].name} chunk @{s}: {n_clipped} pairs "
+                                   "clipped; the direct-sample warp never clips, so this is a "
+                                   "fault")
+            inv = ~ok_p[i][s : s + b_eff]
+            for dst, f in zip(feats_all[i], feats):
+                vals = f[:b_eff].cpu().numpy()
+                vals[inv] = np.nan
+                dst[s : s + b_eff] = vals
 
     depth = _PIPELINE_DEPTH * len(devs)
     for s in range(0, n_pairs_total, chunk_pairs):
         b_eff = min(chunk_pairs, n_pairs_total - s)
         for i in order:
             dev = dev_of[i]
-            if tensors:
-                fr = vids[i][s : s + chunk_pairs + 1].to(dev, torch.uint8)
-            else:
-                fr = torch.as_tensor(np.asarray(vids[i][s : s + chunk_pairs + 1], np.uint8),
-                                     device=dev)
-            if b_eff < chunk_pairs:  # one chunk shape: repeat the last frame
-                fr = torch.cat([fr, fr[-1:].expand(chunk_pairs - b_eff, h, w)])
             ex_c = np.zeros((chunk_pairs, 2), np.float32)
             ey_c = np.zeros_like(ex_c)
             ex_c[:b_eff] = ex_p[i][s : s + b_eff]
             ey_c[:b_eff] = ey_p[i][s : s + b_eff]
-            feats, clips = roi_body_flow_seq(
-                fr, torch.as_tensor(ex_c, device=dev), torch.as_tensor(ey_c, device=dev),
-                masks[i], config.flow)
+            with timing.span(timer, "flow.copy"):
+                if tensors:
+                    fr = vids[i][s : s + chunk_pairs + 1].to(dev, torch.uint8)
+                else:
+                    fr = torch.as_tensor(np.asarray(vids[i][s : s + chunk_pairs + 1], np.uint8),
+                                         device=dev)
+                if b_eff < chunk_pairs:  # one chunk shape: repeat the last frame
+                    fr = torch.cat([fr, fr[-1:].expand(chunk_pairs - b_eff, h, w)])
+                axes = [torch.as_tensor(a, device=dev) for a in (ex_c, ey_c)]
+            with timing.span(timer, "flow.launch"):
+                feats, clips = roi_body_flow_seq(fr, *axes, masks[i], config.flow)
+            del axes  # freed after the launch, as the call's own arguments were
             pending.append((i, s, b_eff, feats, clips))
             while len(pending) > depth:
                 resolve(pending.pop(0))

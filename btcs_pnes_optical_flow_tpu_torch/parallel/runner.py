@@ -83,12 +83,14 @@ def run_cohort(
     over the mesh's devices; ``device`` must be the mesh's first device,
     where stages B and C run, so the rows equal the one-device run's.  A
     ``timer`` collects the stages' wall time (flow items: frames; PC1 and
-    metrics items: rows)."""
+    metrics items: rows) and the flow stage's spans (``run_flow_stage``,
+    ``cohort_flow_sharded``)."""
     device = resolve_device(device)
     if mesh is not None:
         mesh = as_mesh(mesh)
         if mesh[0] != device:
             raise ValueError(f"the mesh's first device {mesh[0]} is not the run's device {device}")
+    spans = timer  # the flow stage's spans go to the caller's timer alone
     timer = timer if timer is not None else StageTimer(device)
     n = len(items)
     flows: List[Optional[pipeline.FlowStageResult]] = [None] * n
@@ -101,7 +103,7 @@ def run_cohort(
             ck = f"{checkpoint_root}/{item.name}" if checkpoint_root else None
             flows[i] = pipeline.run_flow_stage(
                 item.video, item.skeleton, item.roi_polygons, config, chunk_pairs,
-                checkpoint_dir=ck, device=device,
+                checkpoint_dir=ck, device=device, timer=spans,
             )
         except Exception as e:  # per-video isolation: the row records the error
             logger.warning("cohort item %s failed: %s", item.name, e)
@@ -110,7 +112,7 @@ def run_cohort(
     with timer.timed("flow"):
         rest = list(range(n))
         if mesh is not None:
-            done = cohort_flow_sharded(items, flows, config, chunk_pairs, mesh)
+            done = cohort_flow_sharded(items, flows, config, chunk_pairs, mesh, timer=spans)
             rest = [i for i in rest if not done[i]]
         if len(rest) > 1 and flow_workers > 1:
             with ThreadPoolExecutor(max_workers=flow_workers) as pool:

@@ -4,7 +4,10 @@ Port of ``btcs_pnes_optical_flow_tpu/utils/timing.py``.  PyTorch returns
 before the card has finished, so a stage timed on a CUDA device is
 fenced on both edges: pending work is synchronised before the clock
 starts, and a CUDA event recorded at the end is waited on before it
-stops.  ``trace`` captures a ``torch.profiler`` trace.
+stops.  Inside a stage, ``span`` times a part on the host alone, with no
+fence.  Stages and spans open a ``torch.profiler`` range of their name on
+the host's timeline (``_range``).  ``trace`` captures a ``torch.profiler``
+trace.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import contextlib
 import json
 import logging
 import os
+import threading
 import time
 from typing import Dict, Optional
 
@@ -27,6 +31,15 @@ if not logger.handlers and not logging.getLogger().handlers:
     _handler.setFormatter(logging.Formatter("[%(name)s] %(message)s"))
     logger.addHandler(_handler)
     logger.setLevel(os.environ.get("BTCS_LOG_LEVEL", "INFO"))
+
+
+def _range(name: str):
+    """A ``torch.profiler`` range on the host's timeline alone: a
+    function-scope record.  ``torch.profiler.record_function`` opens a
+    user-scope range instead, which the profiler mirrors on the device's
+    timeline over the kernels launched inside it, so that a reduction of the
+    trace that takes every device event for work would count the mirror."""
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 @contextlib.contextmanager
@@ -49,19 +62,52 @@ def device_timer(name: str, sink: Optional[Dict[str, float]] = None, device=None
 
 
 class StageTimer:
-    """Accumulates per-stage wall time and item counts; reports rates."""
+    """Accumulates per-stage wall time and item counts; reports rates.
+
+    ``timed(name, n_items)`` is a stage, fenced on a CUDA device.
+    ``span(name)`` is a part of a stage, timed on the host with
+    ``time.perf_counter`` and no fence: no synchronisation and no event
+    wait.  A span holds the host's time in that part, including time
+    blocked inside the CUDA runtime, where a pageable copy to the card and
+    a read of a device value synchronise the stream by themselves; work
+    the card does for it after the host has moved on falls outside it.
+    Each span adds 1 to ``items[name]``, so its count is the number of
+    times it ran.  Both open a profiler range of their name (``_range``),
+    so in a profiled call they lie on the trace's own clock.
+    A lock guards the sums: threads may share a timer (``run_cohort``'s
+    per-video flow workers).
+    """
 
     def __init__(self, device=None):
         self.device = device
         self.times: Dict[str, float] = {}
         self.items: Dict[str, int] = {}
+        self._lock = threading.Lock()
 
+    def _add(self, name: str, seconds: float, n: int):
+        with self._lock:
+            self.times[name] = self.times.get(name, 0.0) + seconds
+            self.items[name] = self.items.get(name, 0) + n
+
+    @contextlib.contextmanager
     def timed(self, name: str, n_items: int = 0):
-        self.items[name] = self.items.get(name, 0) + n_items
-        return device_timer(name, self.times, self.device)
+        self.add_items(name, n_items)
+        sink: Dict[str, float] = {}
+        with _range(name), device_timer(name, sink, self.device):
+            yield
+        self._add(name, sink[name], 0)
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        with _range(name):
+            t0 = time.perf_counter()
+            yield
+            dt = time.perf_counter() - t0
+        self._add(name, dt, 1)
 
     def add_items(self, name: str, n: int):
-        self.items[name] = self.items.get(name, 0) + n
+        with self._lock:
+            self.items[name] = self.items.get(name, 0) + n
 
     def report(self) -> str:
         rows = {
@@ -73,6 +119,12 @@ class StageTimer:
             for k, t in self.times.items()
         }
         return json.dumps(rows)
+
+
+def span(timer: Optional[StageTimer], name: str):
+    """``timer.span(name)``; without a timer a context that does nothing,
+    so an untimed call reads no clock and opens no range."""
+    return contextlib.nullcontext() if timer is None else timer.span(name)
 
 
 @contextlib.contextmanager
