@@ -4,8 +4,10 @@ Port of ``btcs_pnes_optical_flow_tpu/ops/filters.py``:
 
 - ``sosfilt`` / ``sosfiltfilt`` ↔ scipy.signal.sosfilt / sosfiltfilt over
   the last axis, batched over every leading axis, with two engines:
-  ``"scan"``, the sequential biquad recurrence (transposed direct form II,
-  a Python loop of one small tensor step per sample), and ``"assoc"``, a
+  ``"scan"``, the sequential biquad recurrence (transposed direct form II:
+  on the CPU a Python loop of one small tensor step per sample, on the card
+  one launch of ``sos_cascade_kernel`` per call, ``ops/filters_cuda.py``,
+  bit for bit the same loop), and ``"assoc"``, a
   log-depth doubling scan of each section's complex pole-coordinate
   recurrence (the JAX package's ``lax.associative_scan`` engine);
 - ``bandpass_nanrobust`` ↔ the reference's per-finite-run zero-phase
@@ -28,7 +30,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from btcs_pnes_optical_flow_tpu_torch.ops import design
+from btcs_pnes_optical_flow_tpu_torch.ops import design, filters_cuda
 
 
 def _section_scan(b0, b1, b2, a1, a2, x: torch.Tensor, zi: torch.Tensor):
@@ -111,9 +113,16 @@ def sosfilt(sos, x: torch.Tensor, zi: torch.Tensor,
     """
     if engine not in _SECTIONS:
         raise ValueError(f"sosfilt engine must be one of {sorted(_SECTIONS)}, got {engine!r}")
-    section = _SECTIONS[engine]
     sos = np.asarray(sos, dtype=np.float64)
     zi = zi.expand(x.shape[:-1] + zi.shape[-2:])
+    if engine == "scan":  # the plain loop on the CPU, one kernel launch on the card
+        return filters_cuda.sos_cascade(sos, x.contiguous(), zi)
+    return _cascade(_SECTIONS[engine], sos, x, zi)
+
+
+def _cascade(section, sos: np.ndarray, x: torch.Tensor, zi: torch.Tensor):
+    """The sections of sos one after another over the whole of x, each by
+    ``section``; zi (..., S, 2) expanded to x's leading axes."""
     v = x
     zf = []
     for s in range(sos.shape[0]):

@@ -12,8 +12,9 @@ Phases (any failed check raises, so the exit code is non-zero):
 
 1. device  — card name and power limit (nvidia-smi), torch / CUDA
              versions, the TF32 flags (both set False);
-2. build   — nvcc builds csrc/farneback.cu and csrc/tvl1.cu for sm_90a
-             in parallel (build/kernels/), with ptxas' register report;
+2. build   — nvcc builds csrc/farneback.cu, csrc/tvl1.cu and
+             csrc/filters.cu for sm_90a in parallel (build/kernels/), with
+             ptxas' register report;
 3. kernels — K1 poly_exp, K2 update_matrices (whole level, and in box
              mode over the bench ROI's level-0 box), K3 update_flow and K4
              update_matrices_tiles (over that box's tiles and over a seeded
@@ -24,7 +25,12 @@ Phases (any failed check raises, so the exit code is non-zero):
              ROI box's tiles and K2's box mode (beside K4) and K3 (full frame
              and box mode) at the main path's shape, one 257-frame chunk at
              level 0, with K1's one-call yardstick (F.conv2d with the five
-             folded 11×11 filters);
+             folded 11×11 filters); (3c) the PC1 head's band-pass cascade
+             (sos_cascade_kernel, one sosfilt pass a launch) at the staging
+             rows of the benchmark's cells, (2, 64, 3649), (2, 2, 64, 3649)
+             and (2, 32, 64, 409), torch.equal to the plain _section_scan
+             loop in y and zf and timed in rounds plain, kernel, kernel,
+             plain, and a 10-section cascade (two launches) torch.equal;
 4. slice   — the bench clip's 512 pairs as two 257-frame chunks through
              roi_body_flow_seq and then pc1_from_flow, with the launch
              counts, the kernel path against the plain path (on the card
@@ -129,9 +135,11 @@ Phases (any failed check raises, so the exit code is non-zero):
              112×896 (level 0 on the epsilon loop) and the translation of a
              textured 1080p frame (interior EPE).
 Phase 3 and 3b also hold K2's and K4's bf16 instances and K2's row-offset
-instance against their plain versions; phase 9 runs run_cohort over a mesh
-of every card present and, with one card, over a 4-shard cuda:0 layout
-(rows equal to the batched run's).  Phases 9–17 print their seconds; the
+instance against their plain versions; phases 8, 9, 11, 12, 15d and 16
+count the band-pass calls of their PC1 head and require two cascade
+launches a call (its forward and backward pass); phase 9 runs run_cohort
+over a mesh of every card present and, with one card, over a 4-shard
+cuda:0 layout (rows equal to the batched run's).  Phases 9–17 print their seconds; the
 kernel rows of phase 15's kernels carry its 1080p figures (hd_*), those of
 phase 16's its launches (bilateral_*), K5's and K6's phase 17's figures
 (tv_<size>_*).
@@ -141,7 +149,8 @@ bytes it must move (each input read once, each output written once) over
 3.35 TB/s and its float32 operations over 67 TFLOP/s (one H100 SXM, NVIDIA's
 data sheet), computed from the shapes of the call it was timed at, with
 its share (bound / time) and the time of one PyTorch call that computes the
-same function, or null where none does (the reason is printed).  The
+same function, or null where none does (the reason is printed); the
+cascade's row also says why it is latency-bound (bound_note).  The
 second-to-last line is the kernels JSON, the last line {"ok": true,
 "device": {...}}.  Imports neither JAX nor cv2.
 """
@@ -170,9 +179,11 @@ CHECK_PAIRS = 8
 REPS = 20
 SOURCE = "btcs_pnes_optical_flow_tpu_torch/csrc/farneback.cu"
 TV_SOURCE = "btcs_pnes_optical_flow_tpu_torch/csrc/tvl1.cu"
+FLT_SOURCE = "btcs_pnes_optical_flow_tpu_torch/csrc/filters.cu"
 PALLAS = "btcs_pnes_optical_flow_tpu/ops/farneback_pallas.py"
 TV_PALLAS = "btcs_pnes_optical_flow_tpu/ops/tvl1_pallas.py"
 SPATIAL = "btcs_pnes_optical_flow_tpu/parallel/spatial.py"
+JAX_FILTERS = "btcs_pnes_optical_flow_tpu/ops/filters.py"
 TV_PAIRS = 16  # the JAX bench's TV-L1 line: render_clip(17, seed=2)
 # The JAX bench's cohort line (bench.py:401-496): 32 clips of 129 frames,
 # chunks of 128 pairs.
@@ -279,6 +290,20 @@ TV_KERNELS = (
 )
 
 
+# Phase 3c: the PC1 head's band-pass cascade at the staging rows of the
+# benchmark's cells, (2 signals, ROIs, 64 runs, N + 48 samples): a 2-minute
+# 1080p recording with one ROI (the one-ROI staging has no ROI axis) and
+# with two, and the 480p cohort's 32 rows of 361 frames.
+FLT_SHAPES = (("1080p, one ROI", (2, 64, 3649)), ("1080p, two ROIs", (2, 2, 64, 3649)),
+              ("480p cohort", (2, 32, 64, 409)))
+FLT_LONG_ORDER = 10  # a band-pass of 10 sections: past one launch's 8, two launches
+# (name, K, what it replaces, tolerance, and why).
+FLT_KERNELS = (
+    ("sos_cascade", "sos", f"no TPU kernel: lax.scan in JAX ({JAX_FILTERS}:48)", 0.0,
+     "bit-equal: _section_scan's float32 operations in their order, without FMA contraction"),
+)
+
+
 def _median_ms(fn, reps=REPS):
     times = []
     for _ in range(reps):
@@ -311,21 +336,23 @@ def phase_device():
 
 
 def phase_build():
-    from btcs_pnes_optical_flow_tpu_torch.ops import _build, farneback_cuda, tvl1_cuda
+    from btcs_pnes_optical_flow_tpu_torch.ops import (_build, farneback_cuda, filters_cuda,
+                                                      tvl1_cuda)
 
     print("== 2. build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        results = list(pool.map(_build.load, ("farneback.cu", "tvl1.cu")))
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
+        results = list(pool.map(_build.load, ("farneback.cu", "tvl1.cu", "filters.cu")))
     farneback_cuda.library()
     tvl1_cuda.library()
+    filters_cuda.library()
     for res in results:
         print(f"nvcc: {' '.join(res.command) if res.command else '(cached) ' + str(res.path)}")
         for line in res.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}")
         print(f"build {res.seconds:.2f} s -> {res.path.name}")
-    print(f"both built in {time.perf_counter() - t0:.2f} s")
+    print(f"all built in {time.perf_counter() - t0:.2f} s")
     _sass_mix(results[1].path, f"pd_block_kernelILi{tvl1_cuda.PD_DEPTH}E")
 
 
@@ -850,6 +877,105 @@ def _check_and_time(name, kid, source, replaces, kern_fn, plain_fn, rtol, abs_to
     return row
 
 
+def phase_cascade(device, smi, rows):
+    """3c: the PC1 head's band-pass cascade (sos_cascade_kernel, one
+    sosfilt pass a launch) at the benchmark cells' staging shapes against
+    the plain _section_scan loop on the card, torch.equal in y and zf, each
+    then timed in rounds plain, kernel, kernel, plain; a 10-section cascade
+    (two launches) torch.equal too.  The row's ms is the 1080p one-ROI pass."""
+    from btcs_pnes_optical_flow_tpu_torch.config import PCAParams
+    from btcs_pnes_optical_flow_tpu_torch.ops import filters, filters_cuda
+
+    name, kid, replaces, tol, why = FLT_KERNELS[0]
+    pca = PCAParams()
+    print(f"== 3c. {kid} {name}: one sosfilt pass of the PC1 band-pass (order {pca.bpf_order}) "
+          f"against the plain loop, on the staging rows of the benchmark's cells")
+
+    def case(sos, zi, shape):
+        x = torch.as_tensor(np.random.default_rng(sum(shape)).normal(size=shape)
+                            .astype(np.float32) * 3, device=device)
+        z0 = torch.as_tensor(zi, device=device) * x[..., :1, None]  # _filtfilt_runs' zi·x[0]
+        kernel = functools.partial(filters.sosfilt, sos, x, z0, engine="scan")
+        plain = functools.partial(filters._cascade, filters._section_scan, sos, x, z0)
+        filters_cuda.reset_launch_counts()
+        (y, zf), (y_ref, zf_ref) = kernel(), plain()
+        launches = filters_cuda.LAUNCHES["sos_cascade"]
+        torch.cuda.synchronize()
+        err = max(float((y - y_ref).abs().max()), float((zf - zf_ref).abs().max()))
+        same = torch.equal(y, y_ref) and torch.equal(zf, zf_ref)
+        return kernel, plain, launches, err, same
+
+    row = None
+    sos, zi, _ = filters.make_bandpass(pca.bpf_low_hz, pca.bpf_high_hz, pca.fs, pca.bpf_order)
+    for label, shape in FLT_SHAPES:
+        kernel, plain, launches, err, same = case(sos, zi, shape)
+        ms_k, ms_p = [], []
+        for which in ("plain", "kernel", "kernel", "plain"):
+            if which == "plain":
+                ms_p.append(_median_ms(plain, 1))
+            else:
+                ms_k.append(_median_ms(kernel, REPS))
+        n_rows, n = int(np.prod(shape[:-1])), shape[-1]
+        print(f"{label} {shape}: {n_rows} rows x {n} samples, {launches} launch; torch.equal to "
+              f"the plain loop (y, zf) {same}, max |d| {err:.3e} (tol {tol}: {why}); kernel "
+              f"{statistics.median(ms_k):.4f} ms (median of {REPS}, rounds {ms_k}), plain "
+              f"{statistics.median(ms_p):.2f} ms (one pass a round, {ms_p}) on [{smi}]")
+        if launches != 1 or not same:
+            raise AssertionError(f"{name} at {shape}: {launches} launches, torch.equal {same}")
+        if row is None:
+            n_sec = sos.shape[0]
+            row = dict(name=name, route="cuda", source=FLT_SOURCE, replaces=replaces, launches=0,
+                       max_abs_err=err, ms=statistics.median(ms_k),
+                       plain_ms=statistics.median(ms_p), rows=n_rows, samples=n, by_shape={})
+            # Each sample of a row: x read and y written (8 B), the state
+            # (S, 2) read and written once a row; 9 operations a section.
+            print(f"  bound of the {label} pass (a sample counts as a px):")
+            _set_bound(row, n_rows * n, 8 + 16 * n_sec / n, 9 * n_sec, None,
+                       "no PyTorch call runs a recursive filter")
+            row["bound_note"] = (f"latency: a thread walks its row's {n}x{n_sec} dependent "
+                                 "section steps in order, so neither bytes nor operations "
+                                 "set the time")
+            print(f"  {row['bound_note']}")
+        row["by_shape"][label] = dict(shape=shape, ms=statistics.median(ms_k),
+                                      plain_ms=statistics.median(ms_p))
+    sos, zi, _ = filters.make_bandpass(pca.bpf_low_hz, pca.bpf_high_hz, pca.fs, FLT_LONG_ORDER)
+    _, _, launches, err, same = case(sos, zi, FLT_SHAPES[-1][1])
+    print(f"order {FLT_LONG_ORDER} ({sos.shape[0]} sections, {filters_cuda.MAX_SECTIONS} a "
+          f"launch) at {FLT_SHAPES[-1][1]}: {launches} launches, torch.equal {same}, max |d| "
+          f"{err:.3e}")
+    if launches != -(-sos.shape[0] // filters_cuda.MAX_SECTIONS) or not same:
+        raise AssertionError(f"{name}: the {sos.shape[0]}-section cascade disagrees")
+    rows[name] = row
+
+
+@contextlib.contextmanager
+def _cascade_launches(what):
+    """Count the band-pass calls (filters.bandpass_nanrobust) and the
+    cascade kernel's launches inside the block; raise unless there was a
+    call and each made exactly two launches, its forward and its backward
+    sosfilt pass.  Yields the list of the calls' engines."""
+    from btcs_pnes_optical_flow_tpu_torch.ops import filters, filters_cuda
+
+    calls = []
+    band_pass = filters.bandpass_nanrobust
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs.get("engine"))
+        return band_pass(*args, **kwargs)
+
+    filters_cuda.reset_launch_counts()
+    filters.bandpass_nanrobust = counted
+    try:
+        yield calls
+    finally:
+        filters.bandpass_nanrobust = band_pass
+    launches = filters_cuda.LAUNCHES["sos_cascade"]
+    print(f"{what}: {len(calls)} band-pass call(s) (engines {calls}), {launches} sos_cascade "
+          f"launches (expected 2 a call)")
+    if not calls or launches != 2 * len(calls):
+        raise AssertionError(f"{what}: {launches} cascade launches for {len(calls)} band-passes")
+
+
 def phase_slice(clip, params, device, smi, rows, flow_plain):
     from bench import H, W
     from btcs_pnes_optical_flow_tpu_torch.config import PCAParams
@@ -974,6 +1100,7 @@ def phase_pipeline(clip, device, smi, rows, full_feats):
         run_full, run_metrics_stage, run_pc1_stage)
     from btcs_pnes_optical_flow_tpu_torch.ops import farneback as fb
     from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
+    from btcs_pnes_optical_flow_tpu_torch.ops import filters_cuda
     from btcs_pnes_optical_flow_tpu_torch.utils.timing import StageTimer
 
     n = clip.shape[0]
@@ -996,9 +1123,11 @@ def phase_pipeline(clip, device, smi, rows, full_feats):
     fc.reset_launch_counts()
     timer = StageTimer(device)
     t0 = time.perf_counter()
-    flow, pc1, mets = run_full(ArraySource(clip, fps=30.0), skel, [ROI], cfg, CHUNK,
-                               device=device, timer=timer)
+    with _cascade_launches("run_full's PC1 head"):
+        flow, pc1, mets = run_full(ArraySource(clip, fps=30.0), skel, [ROI], cfg, CHUNK,
+                                   device=device, timer=timer)
     e2e = time.perf_counter() - t0
+    rows["sos_cascade"]["launches"] = filters_cuda.LAUNCHES["sos_cascade"]
     launches = dict(fc.LAUNCHES)
     print(f"launches over {n_chunks} chunks: {launches} (expected from the boxes {want})")
     if launches != want or not launches["update_matrices_box"]:
@@ -1130,7 +1259,8 @@ def phase_cohort(device, smi, rows):
     metrics_model.pc1_metrics_batch = lambda t, p, *a, **kw: (
         head_in.append((t, p)) or batch_head(t, p, *a, **kw))
     try:
-        batched, _ = run("batched, host clips", clips, mesh=mesh)
+        with _cascade_launches("run_cohort's PC1 head, one length group"):
+            batched, _ = run("batched, host clips", clips, mesh=mesh)
     finally:
         metrics_model.pc1_metrics_batch = batch_head
     launches = dict(fc.LAUNCHES)
@@ -1280,7 +1410,9 @@ def phase_pc1_engines(device, smi, full_feats):
     vy = torch.cat([nan, full_feats[1]]).to(device)
     out, secs = {}, {}
     for engine in ("scan", "assoc"):
-        pc1_from_flow(vx, vy, engine=engine)  # warm-up
+        with (_cascade_launches("pc1_from_flow (scan)") if engine == "scan"
+              else contextlib.nullcontext()):
+            pc1_from_flow(vx, vy, engine=engine)  # warm-up
         times = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -1344,8 +1476,9 @@ def phase_bench_config(clip, device, smi, rows, pc1_fp32):
     fc.reset_launch_counts()
     timer = StageTimer(device)
     t0 = time.perf_counter()
-    flow, pc1, mets = run_full(ArraySource(clip, fps=30.0), skel, [ROI], cfg, CHUNK,
-                               device=device, timer=timer)
+    with _cascade_launches("run_full's PC1 head, the bench config"):
+        flow, pc1, mets = run_full(ArraySource(clip, fps=30.0), skel, [ROI], cfg, CHUNK,
+                                   device=device, timer=timer)
     e2e = time.perf_counter() - t0
     launches = dict(fc.LAUNCHES)
     print(f"launches: {launches} (expected from the boxes {want})")
@@ -2258,8 +2391,9 @@ def _hd_full(base, cfg, p, device, smi, rows, ck, plain_chunk):
     sampler.start()
     timer = StageTimer(device)
     t0 = time.perf_counter()
-    flow, pc1, mets = run_full(_pingpong_source(base, n), _skeleton(n), [HD_ROI], cfg, HD_CHUNK,
-                               checkpoint_dir=ck, device=device, timer=timer)
+    with _cascade_launches("the 10-minute run_full's PC1 head"):
+        flow, pc1, mets = run_full(_pingpong_source(base, n), _skeleton(n), [HD_ROI], cfg,
+                                   HD_CHUNK, checkpoint_dir=ck, device=device, timer=timer)
     wall = time.perf_counter() - t0
     launches = dict(fc.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2565,8 +2699,9 @@ def phase_bilateral(device, smi, rows):
     fc.reset_launch_counts()
     timer = StageTimer(device)
     t0 = time.perf_counter()
-    flow, pc1, mets = run_full(_pingpong_source(base, n), skel, rois, cfg, HD_CHUNK,
-                               device=device, timer=timer)
+    with _cascade_launches("the bilateral run_full's PC1 head, both ROIs"):
+        flow, pc1, mets = run_full(_pingpong_source(base, n), skel, rois, cfg, HD_CHUNK,
+                                   device=device, timer=timer)
     wall = time.perf_counter() - t0
     launches = dict(fc.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2841,6 +2976,7 @@ def main():
     print(f"bench clip {clip.shape} rendered in {time.perf_counter() - t0:.1f} s")
     rows, flow_plain, box0 = phase_kernels(clip, params, device)
     phase_kernels_main(clip, params, device, rows, box0)
+    phase_cascade(device, smi, rows)
     chunk, exd, eyd, masks, full_feats = phase_slice(clip, params, device, smi, rows,
                                                      flow_plain)
     from btcs_pnes_optical_flow_tpu_torch.models.flow import roi_body_flow_seq
@@ -2876,7 +3012,7 @@ def main():
         t0 = time.perf_counter()
         out[number] = run()
         print(f"phase {number}: {time.perf_counter() - t0:.1f} s")
-    names = [name for name, *_ in KERNELS] + [name for name, *_ in TV_KERNELS]
+    names = [name for name, *_ in KERNELS + TV_KERNELS + FLT_KERNELS]
     print(json.dumps({"kernels": [rows[name] for name in names]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -495,6 +495,116 @@ def test_assoc_band_pass_card_matches_cpu(card):
     torch.testing.assert_close(zf[1].cpu(), zf[0], rtol=0, atol=1e-5 * float(zf[0].abs().max()))
 
 
+def _section_loop(sos, x, zi):
+    """The sequential engine's plain loop on x's device: ``_section_scan``
+    over each section in turn, each over the whole of x."""
+    from btcs_pnes_optical_flow_tpu_torch.ops import filters
+
+    return filters._cascade(filters._section_scan, sos, x,
+                            zi.expand(x.shape[:-1] + zi.shape[-2:]))
+
+
+# The staging rows of the benchmark's cells ((2 signals, ROIs, 64 runs,
+# N + 48 samples): 1080p with one and two ROIs, the 480p cohort's 32 rows),
+# ragged ones (rows past a 32-row block, a tile of 256 samples cut short),
+# and a band-pass of order 10: 10 sections, past the 8 one launch takes.
+@pytest.mark.parametrize("shape,order", [((2, 64, 3649), 4), ((2, 2, 64, 3649), 4),
+                                         ((2, 32, 64, 409), 4), ((3, 37, 300), 4), ((1, 1), 4),
+                                         ((2, 37, 700), 10)])
+def test_sos_cascade_kernel_equals_the_section_loop(card, shape, order):
+    """sosfilt's sequential engine on the card is one launch of
+    sos_cascade_kernel per 8 sections, each group's output the next
+    group's input, bit-equal to the plain loop on the card (y and zf), with
+    zi per row and broadcast."""
+    from btcs_pnes_optical_flow_tpu_torch.ops import filters, filters_cuda
+
+    sos, zi, _ = filters.make_bandpass(0.5, 5.0, 30.0, order)
+    x = torch.as_tensor(np.random.default_rng(sum(shape)).normal(size=shape).astype(np.float32)
+                        * 3, device=card)
+    for z0 in (torch.as_tensor(zi, device=card) * x[..., :1, None],
+               torch.as_tensor(zi, device=card)):
+        filters_cuda.reset_launch_counts()
+        y, zf = filters.sosfilt(sos, x, z0, engine="scan")
+        assert filters_cuda.LAUNCHES["sos_cascade"] == -(-order // filters_cuda.MAX_SECTIONS)
+        y_ref, zf_ref = _section_loop(sos, x, z0)
+        assert zf.shape == x.shape[:-1] + (order, 2)
+        assert torch.equal(y, y_ref) and torch.equal(zf, zf_ref)
+
+
+def test_sos_cascade_kernel_on_the_band_pass_staging_rows(card, monkeypatch):
+    """Both passes of the NaN-robust band-pass hand the kernel staging rows
+    with odd extensions and garbage fill (``_filtfilt_runs``); on each, the
+    kernel is bit-equal to the plain loop."""
+    from btcs_pnes_optical_flow_tpu_torch.ops import filters, filters_cuda
+
+    sos, zi, padreq = filters.make_bandpass(0.5, 5.0, 30.0, 4)
+    x = _nan_signals((2, 3, 1200), 4)
+    x[0, 1, 500:503] = np.nan   # a run shorter than padreq + 1 between two long ones
+    x[1, 2, 800:1000:7] = np.nan
+    x[:, 0, 1150:] = np.inf
+    seen = []
+    kernel = filters_cuda.sos_cascade
+
+    def spy(sos_, x_, zi_):
+        seen.append((x_.clone(), zi_.clone()))
+        return kernel(sos_, x_, zi_)
+
+    monkeypatch.setattr(filters_cuda, "sos_cascade", spy)
+    filters.bandpass_nanrobust(torch.as_tensor(x, device=card), sos,
+                               torch.as_tensor(zi, device=card), padreq, engine="scan")
+    assert len(seen) == 2 and seen[0][0].shape == (2, 3, 64, 1200 + 2 * padreq)
+    for xs, zs in seen:
+        y, zf = kernel(sos, xs, zs)
+        y_ref, zf_ref = _section_loop(sos, xs, zs)
+        assert torch.equal(y, y_ref) and torch.equal(zf, zf_ref)
+
+
+@pytest.mark.parametrize("order", [4, 10])
+def test_pc1_batch_with_the_kernel_equals_the_plain_loop(card, monkeypatch, order):
+    """pc1_from_flow_batch on the card (two 3601-sample rows, as the
+    bilateral 1080p cell) with the kernel is torch.equal to the same call
+    with the plain loop, at the default band-pass and at PCAParams(bpf_order=10)
+    (two launches a pass)."""
+    from btcs_pnes_optical_flow_tpu_torch.config import PCAParams
+    from btcs_pnes_optical_flow_tpu_torch.models.pc1 import pc1_from_flow_batch
+    from btcs_pnes_optical_flow_tpu_torch.ops import filters_cuda
+
+    t = np.arange(3601) / 30.0
+    rng = np.random.default_rng(8)
+    vx = np.stack([np.sin(2 * np.pi * f * t) + 0.2 * rng.normal(size=t.size) for f in (3.0, 2.5)])
+    vy = 0.5 * vx[::-1] + 0.1 * rng.normal(size=vx.shape)
+    vx[:, 0] = vy[:, 0] = np.nan
+    vx[1, 1200:1260] = np.nan
+    args = [torch.as_tensor(v, dtype=torch.float32, device=card) for v in (vx, vy)]
+    params = PCAParams(bpf_order=order)
+    filters_cuda.reset_launch_counts()
+    kern = pc1_from_flow_batch(*args, params)
+    assert filters_cuda.LAUNCHES["sos_cascade"] == 2 * -(-order // filters_cuda.MAX_SECTIONS)
+    monkeypatch.setattr(filters_cuda, "sos_cascade", _section_loop)
+    plain = pc1_from_flow_batch(*args, params)
+    assert torch.isfinite(kern[:, 1:]).any() and torch.equal(kern.isnan(), plain.isnan())
+    assert torch.equal(torch.nan_to_num(kern), torch.nan_to_num(plain))
+
+
+def test_run_full_launches_the_cascade_twice_per_band_pass(card, monkeypatch):
+    """One run_full on the card (two ROIs) makes one band-pass call, and it
+    is two launches of sos_cascade_kernel: the forward and the backward
+    pass."""
+    from btcs_pnes_optical_flow_tpu_torch.dataio.video import ArraySource
+    from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_full
+    from btcs_pnes_optical_flow_tpu_torch.ops import filters, filters_cuda
+
+    calls = []
+    band_pass = filters.bandpass_nanrobust
+    monkeypatch.setattr(filters, "bandpass_nanrobust",
+                        lambda *a, **k: calls.append(1) or band_pass(*a, **k))
+    frames, skel, rois = _two_blob_inputs()
+    filters_cuda.reset_launch_counts()
+    _, pc1, _ = run_full(ArraySource(frames, 30.0), skel, rois, chunk_pairs=8, device=card)
+    assert pc1.shape == (17, 2) and len(calls) == 1
+    assert filters_cuda.LAUNCHES["sos_cascade"] == 2
+
+
 @pytest.mark.parametrize("engine", ["scan", "assoc"])
 def test_pc1_and_streaming_card_match_cpu(card, engine):
     from btcs_pnes_optical_flow_tpu_torch.models.pc1 import pc1_from_flow
@@ -505,20 +615,18 @@ def test_pc1_and_streaming_card_match_cpu(card, engine):
     vy = np.sin(2 * np.pi * 3.0 * t) * np.sin(0.4) + 0.1 * np.random.default_rng(2).normal(size=t.size)
     vx[0] = vy[0] = np.nan
     vx[900:950] = vy[900:950] = np.nan
-    n = 513 if engine == "scan" else 3000  # the sequential scan is one step per sample
-    full = [pc1_from_flow(torch.as_tensor(vx[:n], dtype=torch.float32, device=d),
-                          torch.as_tensor(vy[:n], dtype=torch.float32, device=d),
+    full = [pc1_from_flow(torch.as_tensor(vx, dtype=torch.float32, device=d),
+                          torch.as_tensor(vy, dtype=torch.float32, device=d),
                           engine=engine).cpu().numpy() for d in ("cpu", card)]
     fin = np.isfinite(full[0])
     assert np.array_equal(np.isnan(full[1]), ~fin)
     assert np.corrcoef(full[0][fin], full[1][fin])[0, 1] >= 0.9999
-    if engine == "assoc":
-        chunked = [pc1_streaming(vx, vy, chunk_n=1024, engine=engine, device=d)
-                   for d in ("cpu", card)]
-        assert np.array_equal(np.isnan(chunked[0]), np.isnan(chunked[1]))
-        fin = np.isfinite(chunked[0])
-        assert np.corrcoef(chunked[0][fin], chunked[1][fin])[0, 1] > 0.9999
-        assert np.corrcoef(chunked[1][fin], full[1][fin])[0, 1] > 0.9999
+    chunked = [pc1_streaming(vx, vy, chunk_n=1024, engine=engine, device=d)
+               for d in ("cpu", card)]
+    assert np.array_equal(np.isnan(chunked[0]), np.isnan(chunked[1]))
+    fin = np.isfinite(chunked[0])
+    assert np.corrcoef(chunked[0][fin], chunked[1][fin])[0, 1] > 0.9999
+    assert np.corrcoef(chunked[1][fin], full[1][fin])[0, 1] > 0.9999
 
 
 def _cohort_items(n_videos, n_frames, video_of=lambda c: c):

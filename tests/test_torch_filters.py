@@ -167,3 +167,68 @@ def test_engine_defaults_equal_jax():
         assert _engine_default(getattr(tpc1, name)) == "scan"
         assert _engine_default(inspect.unwrap(getattr(jpc1, name))) == "scan"
     assert _engine_default(tpipeline.run_pc1_stage) == "scan"
+
+
+def _section_loop(sos, x, zi):
+    """The sequential engine as a loop of ``_section_scan`` over the
+    sections, each over the whole of x (the engine before it had a kernel)."""
+    zi = zi.expand(x.shape[:-1] + zi.shape[-2:])
+    v, zf = x, []
+    for s in range(sos.shape[0]):
+        b0, b1, b2, _, a1, a2 = (float(c) for c in sos[s])
+        v, z = tfilters._section_scan(b0, b1, b2, a1, a2, v, zi[..., s, :])
+        zf.append(z)
+    return v, torch.stack(zf, dim=-2)
+
+
+@pytest.mark.parametrize("shape,expand", [((300,), False), ((2, 3, 97), True), ((4, 65), False)])
+def test_scan_takes_the_plain_loop_on_the_cpu(shape, expand, rng):
+    """On the CPU the sequential engine is the section-by-section loop, bit
+    for bit, and launches no kernel; a transposed (non-contiguous) x gives
+    what its contiguous copy gives."""
+    from btcs_pnes_optical_flow_tpu_torch.ops import filters_cuda
+
+    sos, zi, _ = tfilters.make_bandpass(0.5, 5.0, 30.0, 4)
+    x = _t(rng.normal(size=shape))
+    z0 = _t(zi) * x[..., :1, None] if expand else _t(zi)
+    filters_cuda.reset_launch_counts()
+    y, zf = tfilters.sosfilt(sos, x, z0, engine="scan")
+    y_ref, zf_ref = _section_loop(sos, x, z0)
+    assert torch.equal(y, y_ref) and torch.equal(zf, zf_ref)
+    if x.dim() == 2:
+        yt, zft = tfilters.sosfilt(sos, x.T.contiguous().T, z0, engine="scan")
+        assert torch.equal(yt, y) and torch.equal(zft, zf)
+    assert filters_cuda.LAUNCHES == {"sos_cascade": 0}
+
+
+def test_filters_cuda_imports_without_card_or_nvcc(tmp_path):
+    """ops/filters_cuda.py imports where there is no card, no nvcc and none
+    of jax, pandas, cv2 or the JAX package, and the PC1 head's band-pass
+    runs there on the plain loop without building the kernel."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        "BLOCKED = ('btcs_pnes_optical_flow_tpu', 'jax', 'jaxlib', 'pandas', 'cv2')\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import torch\n"
+        "from btcs_pnes_optical_flow_tpu_torch.ops import filters_cuda\n"
+        "from btcs_pnes_optical_flow_tpu_torch.models.pc1 import pc1_from_flow\n"
+        "v = torch.sin(torch.arange(120, dtype=torch.float32) / 3)\n"
+        "assert pc1_from_flow(v, v.flip(0)).shape == (120,)\n"
+        "assert filters_cuda.LAUNCHES == {'sos_cascade': 0}\n"
+        "assert filters_cuda.library.cache_info().currsize == 0\n"
+        "print('ok')\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, PATH=str(tmp_path), CUDA_VISIBLE_DEVICES="",
+               CUDA_HOME=str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
