@@ -21,11 +21,15 @@ import numpy as np
 
 
 class ChunkStore:
+    """``meta`` is compared as ``meta.json`` reads it back (a tuple as a
+    list); a store written with other meta raises ValueError."""
+
     def __init__(self, directory: str, meta: Optional[dict] = None):
         self.dir = directory
         os.makedirs(directory, exist_ok=True)
         self.meta_path = os.path.join(directory, "meta.json")
         if meta is not None:
+            meta = json.loads(json.dumps(meta))
             existing = self.load_meta()
             if existing is not None and existing != meta:
                 raise ValueError(

@@ -1,10 +1,15 @@
-"""Flow feature extraction: batched Farnebäck + body-axis ROI reduction.
+"""Flow feature extraction: batched dense flow + body-axis ROI reduction.
 
 Port of ``btcs_pnes_optical_flow_tpu/models/flow.py`` (reference:
 compute_roi_mean_body_flow, optical_flow.py:136-189).  Frame pairs are
 the batch axis: a chunk of pairs goes through dense flow, the projection
-onto per-pair body axes and the mean over each ROI mask.  ROI boxes
-(``params.roi_active_px``) pass through to the flow engine.  JAX's
+onto per-pair body axes and the mean over each ROI mask.  The flow engine
+follows the type of ``params``: ``FarnebackParams`` runs Farnebäck, whose
+ROI boxes (``params.roi_active_px``) pass through to it; ``TVL1Params``
+runs TV-L1 (``ops/tvl1.py tvl1_flow``, BASELINE config 5) over whole
+frames, since a variational flow inside a cropped box is not the
+full-frame flow there.  The JAX package's flow models run Farnebäck
+alone.  JAX's
 ``roi_body_flow_checked`` is the escalation tier of its banded warp; here
 it returns ``roi_body_flow``'s features with zero clip counts, since the
 port's warp never clips.
@@ -20,6 +25,7 @@ import torch
 from btcs_pnes_optical_flow_tpu_torch.config import FarnebackParams
 from btcs_pnes_optical_flow_tpu_torch.ops import cvx
 from btcs_pnes_optical_flow_tpu_torch.ops.farneback import farneback_flow, farneback_flow_seq
+from btcs_pnes_optical_flow_tpu_torch.ops.tvl1 import TVL1Params, tvl1_flow
 
 
 class FlowFeatures(NamedTuple):
@@ -64,13 +70,28 @@ def _project_reduce(flow, ex, ey, roi_masks) -> FlowFeatures:
     return FlowFeatures(vx=red(fx_body), vy=red(fy_body), mag=red(mag_body))
 
 
+def _project_reduce_pairs(flow, ex, ey, roi_masks) -> FlowFeatures:
+    """``_project_reduce`` pair by pair, each at a batch of one.  The
+    batched reduction's summation order depends on the batch size (on the
+    CPU and on the card), so a pair's features would move in their last
+    bits with the chunk it shares; one shape for every pair keeps them
+    the pair's own.  TV-L1's answer is per pair (its ε stop is), so its
+    features go through here; Farnebäck keeps the batched reduction."""
+    parts = [_project_reduce(flow[i:i + 1], ex[i:i + 1], ey[i:i + 1], roi_masks)
+             for i in range(flow.shape[0])]
+    return FlowFeatures(*(torch.cat(f) for f in zip(*parts)))
+
+
 def roi_body_flow(prev_gray, gray, ex, ey, roi_masks,
                   params: FarnebackParams = FarnebackParams()) -> FlowFeatures:
     """ROI-averaged body-axis flow features of (B, H, W) frame pairs.
 
     ex, ey: (B, 2) body-axis unit vectors of the current frames;
-    roi_masks: (R, H, W) bool.
+    roi_masks: (R, H, W) bool; ``params``: ``FarnebackParams`` or
+    ``TVL1Params``.
     """
+    if isinstance(params, TVL1Params):
+        return _project_reduce_pairs(tvl1_flow(prev_gray, gray, params), ex, ey, roi_masks)
     return _project_reduce(farneback_flow(prev_gray, gray, params), ex, ey, roi_masks)
 
 
@@ -79,10 +100,15 @@ def roi_body_flow_seq(frames, ex, ey, roi_masks, params: FarnebackParams = Farne
 
     The main entry point of the flow stage.  Returns (features, clips);
     clips is a zero (B,) int32 tensor: the direct-sample warp has no
-    reach limit, so no pair ever needs a re-run.
+    reach limit, so no pair ever needs a re-run.  With ``TVL1Params`` the
+    pairs go through ``tvl1_flow`` as (frames[:-1], frames[1:]) and are
+    reduced pair by pair (``_project_reduce_pairs``).
     """
-    flow = farneback_flow_seq(frames, params)
     clips = torch.zeros((frames.shape[0] - 1,), dtype=torch.int32, device=frames.device)
+    if isinstance(params, TVL1Params):
+        flow = tvl1_flow(frames[:-1], frames[1:], params)
+        return _project_reduce_pairs(flow, ex, ey, roi_masks), clips
+    flow = farneback_flow_seq(frames, params)
     return _project_reduce(flow, ex, ey, roi_masks), clips
 
 

@@ -3,7 +3,10 @@
 Port of ``btcs_pnes_optical_flow_tpu/models/pipeline.py``: chunked decode
 on a prefetch thread → ROI-dispatched Farnebäck flow + ROI reduction on
 the device → band-pass + sliding-window PCA → metric head.  Every entry
-point takes the ``device`` it runs on; none picks one.
+point takes the ``device`` it runs on; none picks one.  With
+``PipelineConfig(flow=TVL1Params())`` the flow stage runs TV-L1 over whole
+frames instead (``models/flow.py``; BASELINE config 5), with no ROI
+dispatch; the JAX package's pipeline runs Farnebäck alone.
 
 The port's warp samples directly and never clips, so ``run_flow_stage``
 raises if a clip count is ever non-zero; the per-chunk log line keeps its
@@ -46,6 +49,7 @@ from btcs_pnes_optical_flow_tpu_torch.models.flow import (
 )
 from btcs_pnes_optical_flow_tpu_torch.ops.cvx import fill_poly_mask
 from btcs_pnes_optical_flow_tpu_torch.ops.farneback import roi_dispatch_params
+from btcs_pnes_optical_flow_tpu_torch.ops.tvl1 import TVL1Params
 from btcs_pnes_optical_flow_tpu_torch.utils import timing
 from btcs_pnes_optical_flow_tpu_torch.utils.timing import StageTimer, logger
 
@@ -74,7 +78,12 @@ def escalate_clipped_pairs(
     JAX exact engine computes, on ``masks_dev``'s device; vx/vy/mg are fixed
     in place.  There is no deep-window tier, so every listed pair goes the
     exact way.  Returns (n_clipped, n_exact), (0, 0) when none is listed.
+    The ladder is Farnebäck's: ``config.flow`` a ``TVL1Params`` raises
+    ValueError (TV-L1's warp never clips, so it has no pair to escalate).
     """
+    if isinstance(config.flow, TVL1Params):
+        raise ValueError("escalate_clipped_pairs recomputes Farnebäck pairs whose banded warp "
+                         "clipped; TV-L1 (TVL1Params) never clips and has no escalation ladder")
     clips = clips.cpu().numpy() if isinstance(clips, torch.Tensor) else np.asarray(clips)
     bad = np.nonzero(clips[:n_pairs] > 0)[0]
     if not bad.size:
@@ -130,9 +139,14 @@ def run_flow_stage(
     Behavioral clone of run_body_axis_flow_core (optical_flow.py:195-259),
     chunked and batched: frame 0 and frames with invalid axes get NaN
     features; each valid frame i uses the flow of the pair (i-1, i)
-    projected on frame i's axes.  Unless ``config.flow`` carries boxes
-    already, the flow is ROI-dispatched (``roi_dispatch_params``): the
-    ROI means equal the full-frame ones.
+    projected on frame i's axes.  Farnebäck's flow is ROI-dispatched
+    (``roi_dispatch_params``) unless ``config.flow`` carries boxes
+    already: the ROI means equal the full-frame ones.  A ``TVL1Params``
+    flow runs over whole frames.
+
+    A checkpoint store holds the chunk size, ROI count, frame size and
+    flow engine with its parameters (``config.flow`` as given); resuming
+    it under other values raises ValueError.
 
     A ``timer`` collects host spans (``StageTimer.span``, no fence) of
     each computed chunk: "flow.copy" (the frames and axes to the device),
@@ -148,16 +162,18 @@ def run_flow_stage(
     roi_masks = np.stack([fill_poly_mask(h, w, p) for p in roi_polygons])
     masks_dev = torch.as_tensor(roi_masks, device=device)
     n_roi = len(roi_polygons)
-    if config.flow.roi_active_px is None:
-        config = dataclasses.replace(
-            config, flow=roi_dispatch_params(config.flow, h, w, roi_masks))
-
+    tvl1 = isinstance(config.flow, TVL1Params)
     store = None
     if checkpoint_dir is not None:
         store = ChunkStore(
             checkpoint_dir,
-            meta={"chunk_pairs": chunk_pairs, "n_roi": n_roi, "h": h, "w": w},
+            meta={"chunk_pairs": chunk_pairs, "n_roi": n_roi, "h": h, "w": w,
+                  "flow_engine": "tvl1" if tvl1 else "farneback",
+                  "flow": dataclasses.asdict(config.flow)},
         )
+    if not tvl1 and config.flow.roi_active_px is None:
+        config = dataclasses.replace(
+            config, flow=roi_dispatch_params(config.flow, h, w, roi_masks))
 
     rows_t: List[np.ndarray] = []
     feats_vx: List[np.ndarray] = []

@@ -15,6 +15,14 @@ hand-written CUDA kernel behind ``ops/tvl1_cuda.py``:
   of the JAX package's resident kernel (hoisted -1/|∇I|², reciprocal
   dual scaling), with an optional ε early exit.
 
+The ε exit is per pair: each pair of the batch keeps the flow of the
+iteration at which its own mean squared update fell below ε², so a pair's
+flow does not depend on the pairs it is batched with (a recording's answer
+does not depend on ``run_full``'s chunk, nor on the tail chunk's padding).
+This departs on purpose from the JAX package, whose loop runs until the
+largest update over the batch falls below ε²; at B = 1 the two are one
+loop.
+
 Engines, resolved as the JAX package resolves them with the CUDA card in
 the TPU's place: every ``warp_engine`` samples directly (K5 on a CUDA
 tensor; the banded-warp knobs are accepted and ignored, since a direct
@@ -31,6 +39,12 @@ iterations, e.g. level 0 of 720×1280 and levels 0–1 of 1080×1920) runs
 the ε loop instead, on whatever device it is on.  That is the
 reference's engine choice, made the same way on every device; it never
 depends on an error.
+
+Host ranges (``utils/timing._range``, no fence) label a call's parts in a
+profiled run: "tvl1.pyramid" (the blur and each level's resizes),
+"tvl1.warp" (K5 and the linearisation), "tvl1.chain" (the fixed-length
+chain, K6 on the card) and "tvl1.eps_loop" (one call of the ε loop, whose
+host read each iteration waits for everything enqueued before it).
 """
 
 from __future__ import annotations
@@ -41,6 +55,7 @@ from typing import Tuple
 import torch
 
 from btcs_pnes_optical_flow_tpu_torch.ops import cvx, tvl1_cuda
+from btcs_pnes_optical_flow_tpu_torch.utils.timing import _range
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,8 +70,8 @@ class TVL1Params:
     n_warps: int = 5           # warps per level
     n_iterations: int = 30     # max primal-dual iterations per warp
     # Early stop on the mean squared flow update per iteration (OpenCV
-    # DualTVL1 semantics); 0 always runs the full n_iterations.  Only the
-    # "xla" pd engine reads it.
+    # DualTVL1 semantics), per pair; 0 always runs the full n_iterations.
+    # Only the ε loop reads it.
     epsilon: float = 0.001
     scale_step: float = 0.5
     warp_engine: str = "auto"  # "auto" | "exact" | "banded": all sample directly
@@ -123,9 +138,11 @@ def pd_chain_plain(u, v, rho_c, i1wx, i1wy, grad_sq, n_iterations: int, tau: flo
     """K6 plain: one warp's primal–dual chain, all planes (B, H, W).
 
     Returns (u, v) after ``n_iterations`` steps from zero duals.  With
-    ``epsilon > 0`` it stops after the first step whose mean squared
-    update (the largest over the batch) is below epsilon², the loop of
-    the JAX package's "xla" engine.
+    ``epsilon > 0`` each pair stops after the first step whose mean
+    squared update over its own plane is below epsilon², and keeps that
+    step's (u, v); the loop ends when every pair has stopped (one host
+    read a step).  The JAX package's "xla" engine stops the whole batch
+    on its largest update instead; at B = 1 the two are the same loop.
     """
     l_t = lambda_ * theta
     tau_theta = tau / theta
@@ -133,6 +150,7 @@ def pd_chain_plain(u, v, rho_c, i1wx, i1wy, grad_sq, n_iterations: int, tau: flo
     wx_igs = i1wx * neg_inv_gs
     wy_igs = i1wy * neg_inv_gs
     p11 = p12 = p21 = p22 = torch.zeros_like(u)
+    active = torch.ones(u.shape[:-2], dtype=torch.bool, device=u.device) if epsilon > 0 else None
     for _ in range(n_iterations):
         rho = rho_c + i1wx * u + i1wy * v
         lo = rho < -l_t * grad_sq
@@ -149,12 +167,14 @@ def pd_chain_plain(u, v, rho_c, i1wx, i1wy, grad_sq, n_iterations: int, tau: flo
         p12 = (p12 + tau_theta * uy) * r_u
         p21 = (p21 + tau_theta * vx) * r_v
         p22 = (p22 + tau_theta * vy) * r_v
-        converged = False
-        if epsilon > 0:
-            err = ((u_new - u) ** 2 + (v_new - v) ** 2).mean(dim=(-2, -1)).max()
-            converged = bool(err < epsilon * epsilon)
-        u, v = u_new, v_new
-        if converged:
+        if active is None:
+            u, v = u_new, v_new
+            continue
+        err = ((u_new - u) ** 2 + (v_new - v) ** 2).mean(dim=(-2, -1))
+        keep = active[..., None, None]
+        u, v = torch.where(keep, u_new, u), torch.where(keep, v_new, v)
+        active = active & ~(err < epsilon * epsilon)
+        if not bool(active.any()):
             break
     return u, v
 
@@ -231,14 +251,18 @@ def _tvl1_level(i0, i1, u, v, p: TVL1Params, resident: bool, kernels: bool):
     chain = tvl1_cuda.pd_chain if kernels else pd_chain_plain
     resident = resident and _resident_ok(*u.shape[-2:], p)
     # I1 and its gradient do not change across the level's warps.
-    src = torch.stack([i1, *_grad(i1)], dim=1)
+    with _range("tvl1.warp"):
+        src = torch.stack([i1, *_grad(i1)], dim=1)
     for _ in range(p.n_warps):
-        planes = _linearise(i0, src, u, v, warp)
+        with _range("tvl1.warp"):
+            planes = _linearise(i0, src, u, v, warp)
         if resident:
-            u, v = chain(u, v, *planes, p.n_iterations, p.tau, p.lambda_, p.theta)
+            with _range("tvl1.chain"):
+                u, v = chain(u, v, *planes, p.n_iterations, p.tau, p.lambda_, p.theta)
         else:
-            u, v = pd_chain_plain(u, v, *planes, p.n_iterations, p.tau, p.lambda_,
-                                  p.theta, epsilon=p.epsilon)
+            with _range("tvl1.eps_loop"):
+                u, v = pd_chain_plain(u, v, *planes, p.n_iterations, p.tau, p.lambda_,
+                                      p.theta, epsilon=p.epsilon)
     return u, v
 
 
@@ -260,20 +284,22 @@ def tvl1_flow(prev: torch.Tensor, curr: torch.Tensor, params: TVL1Params = TVL1P
     _check_warp_engine(params.warp_engine)
     resident = _resolve_pd_engine(params.pd_engine, prev.device)
     b, h, w = prev.shape
-    i0b = cvx.gaussian_blur_reflect101(_unit(prev), 5, 0.8)
-    i1b = cvx.gaussian_blur_reflect101(_unit(curr), 5, 0.8)
+    with _range("tvl1.pyramid"):
+        i0b = cvx.gaussian_blur_reflect101(_unit(prev), 5, 0.8)
+        i1b = cvx.gaussian_blur_reflect101(_unit(curr), 5, 0.8)
 
     u = v = None
     for hh, ww in reversed(_pyramid_sizes(h, w, params)):
-        i0s = cvx.resize_bilinear_mm(i0b, hh, ww)
-        i1s = cvx.resize_bilinear_mm(i1b, hh, ww)
-        if u is None:
-            u = torch.zeros((b, hh, ww), dtype=torch.float32, device=prev.device)
-            v = torch.zeros_like(u)
-        else:
-            inv = 1.0 / params.scale_step
-            u = cvx.resize_bilinear_mm(u, hh, ww) * inv
-            v = cvx.resize_bilinear_mm(v, hh, ww) * inv
+        with _range("tvl1.pyramid"):
+            i0s = cvx.resize_bilinear_mm(i0b, hh, ww)
+            i1s = cvx.resize_bilinear_mm(i1b, hh, ww)
+            if u is None:
+                u = torch.zeros((b, hh, ww), dtype=torch.float32, device=prev.device)
+                v = torch.zeros_like(u)
+            else:
+                inv = 1.0 / params.scale_step
+                u = cvx.resize_bilinear_mm(u, hh, ww) * inv
+                v = cvx.resize_bilinear_mm(v, hh, ww) * inv
         u, v = _tvl1_level(i0s, i1s, u, v, params, resident, kernels)
 
     flow = torch.stack([u, v], dim=-1)

@@ -81,7 +81,9 @@ def run_cohort(
     isolated per video.  With a ``mesh`` (``make_mesh(n)``, or a
     ``Mesh`` layout) a uniform cohort of array clips runs its flow stage
     over the mesh's devices; ``device`` must be the mesh's first device,
-    where stages B and C run, so the rows equal the one-device run's.  A
+    where stages B and C run, so the rows equal the one-device run's.
+    ``config.flow`` may be ``FarnebackParams`` or ``TVL1Params`` on either
+    path (``models/flow.py`` picks the engine by its type).  A
     ``timer`` collects the stages' wall time (flow items: frames; PC1 and
     metrics items: rows) and the flow stage's spans (``run_flow_stage``,
     ``cohort_flow_sharded``)."""

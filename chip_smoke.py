@@ -4,7 +4,8 @@
 reference-compatible CLIs, streaming PC1, the JAX bench's bf16 flow config,
 the height-sharded flow, the batched metric head, BASELINE config 3 (a
 10-minute 1080p recording with checkpoint resume), config 2 (left and right
-ROIs on one recording) and config 5 (TV-L1 at clinical frame sizes).
+ROIs on one recording) and config 5 (TV-L1 at clinical frame sizes, and
+through run_full).
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -133,16 +134,27 @@ Phases (any failed check raises, so the exit code is non-zero):
              and warp, its host syncs (profiler) and share of the call,
              frames/s and peak memory; then the card against the CPU at
              112×896 (level 0 on the epsilon loop) and the translation of a
-             textured 1080p frame (interior EPE).
+             textured 1080p frame (interior EPE);
+18. BASELINE config 5 through run_full — PipelineConfig(flow=TVL1Params())
+             on 137 frames of a 33-frame 1080p base played forward and back,
+             the 1080p ROI, chunks of 16 pairs (the benchmark's cell
+             tvl1.hd1080_16pairs): the TV-L1 launches, counted from zero just
+             before the run, against 15 K5, 5 K6 chains and 20 K6 launches a
+             chunk (the padded tail included), two cascade launches per
+             band-pass, the features against the same run on the plain path
+             (max |d| <= 1e-3 px) and PC1 beside it (corr >= 0.999), then K5's
+             device time per pyramid level in a profiled run_flow_stage of two
+             chunks, its share of the bound per level and over the call,
+             beside phase 17's CUDA-event medians.
 Phase 3 and 3b also hold K2's and K4's bf16 instances and K2's row-offset
 instance against their plain versions; phases 8, 9, 11, 12, 15d and 16
 count the band-pass calls of their PC1 head and require two cascade
 launches a call (its forward and backward pass); phase 9 runs run_cohort
 over a mesh of every card present and, with one card, over a 4-shard
-cuda:0 layout (rows equal to the batched run's).  Phases 9–17 print their seconds; the
+cuda:0 layout (rows equal to the batched run's).  Phases 9–18 print their seconds; the
 kernel rows of phase 15's kernels carry its 1080p figures (hd_*), those of
 phase 16's its launches (bilateral_*), K5's and K6's phase 17's figures
-(tv_<size>_*).
+(tv_<size>_*) and phase 18's launches and traced levels (tv_run_full_*).
 
 Every kernel row of the kernels JSON carries its bound: the larger of the
 bytes it must move (each input read once, each output written once) over
@@ -278,6 +290,11 @@ TV_CLINICAL = {(720, 1280): [0], (1080, 1920): [0, 1]}
 TV_EPS_SIZE = (112, 896)  # card vs CPU where level 0 takes the epsilon loop
 TV_SHIFT, TV_EPE_PX = (1.2, -0.7), 0.25  # tests/test_torch_tvl1.py's translation and bar
 TV_REPS = 5  # CUDA-event repetitions per round of phase 17's kernel timings
+# Phase 18, BASELINE config 5 through run_full, as the benchmark's cell
+# tvl1.hd1080_16pairs runs it: chunks of 16 pairs, over 8 chunks and a
+# padded 8-pair tail of a 33-frame base played forward and back; the
+# profiled run_flow_stage covers 2 chunks.
+TV_RUN_CHUNK, TV_RUN_FRAMES, TV_RUN_BASE, TV_RUN_PROFILED = 16, 16 * 8 + 9, 33, 33
 # TV-L1: (name, K, TPU kernel it replaces, tolerance, and why).
 TV_KERNELS = (
     ("warp_sample", "K5", f"{PALLAS}:1359", 1e-5,
@@ -2963,6 +2980,139 @@ def phase_tvl1_clinical(device, smi, rows):
         raise AssertionError("TV-L1 misses the 1080p translation")
 
 
+def _tvl1_run_full(base, n, cfg, device, timer=None):
+    """run_full over n frames of ``base`` played forward and back, the
+    1080p ROI, axes at THETA, TV_RUN_CHUNK-pair chunks."""
+    from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_full
+
+    return run_full(_pingpong_source(base, n), _skeleton(n), [HD_ROI], cfg, TV_RUN_CHUNK,
+                    device=device, timer=timer)
+
+
+def phase_tvl1_run_full(device, smi, rows):
+    """BASELINE config 5 through run_full under PipelineConfig(flow=
+    TVL1Params()) at 1080p in chunks of 16 pairs: the TV-L1 launches
+    against the per-chunk schedule and the PC1 head's cascade launches,
+    the features against the same run on the plain path, PC1 beside it,
+    and K5's device time per pyramid level in a profiled run_flow_stage
+    beside phase 17's event timings."""
+    from bench import render_clip
+    from btcs_pnes_optical_flow_tpu_torch.config import PipelineConfig
+    from btcs_pnes_optical_flow_tpu_torch.models import flow as fm
+    from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_flow_stage
+    from btcs_pnes_optical_flow_tpu_torch.ops import tvl1 as tv
+    from btcs_pnes_optical_flow_tpu_torch.ops import tvl1_cuda as tc
+    from btcs_pnes_optical_flow_tpu_torch.utils.timing import StageTimer
+
+    h, w, n, chunk = HD_H, HD_W, TV_RUN_FRAMES, TV_RUN_CHUNK
+    p = tv.TVL1Params()
+    cfg = PipelineConfig(flow=p)
+    print(f"== 18. BASELINE config 5 through run_full: {n} frames of {h}x{w}, the 1080p ROI, "
+          f"TVL1Params(), chunks of {chunk} pairs")
+    base = render_clip(TV_RUN_BASE, h, w, seed=1)
+    sizes = tv._pyramid_sizes(h, w, p)
+    fixed = [k for k, s in enumerate(sizes) if tv._resident_ok(*s, p)]
+    per_chunk = {"warp_sample": len(sizes) * p.n_warps, "pd_chain": len(fixed) * p.n_warps,
+                 "pd_block": len(fixed) * p.n_warps * len(tc.pd_schedule(p.n_iterations))}
+    if per_chunk != {"warp_sample": 15, "pd_chain": 5, "pd_block": 20}:
+        raise AssertionError(f"the 1080p TV-L1 schedule is not 15 K5 / 5 K6 chains of 4 "
+                             f"launches: {per_chunk}")
+    n_chunks = -(-(n - 1) // chunk)
+    want = {k: v * n_chunks for k, v in per_chunk.items()}
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    timer = StageTimer(device)
+    with _cascade_launches("run_full's PC1 head under TV-L1"):
+        tc.reset_launch_counts()
+        t0 = time.perf_counter()
+        flow, pc1, mets = _tvl1_run_full(base, n, cfg, device, timer)
+        wall = time.perf_counter() - t0
+        launches = dict(tc.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"launches {launches} (expected {want}: {n_chunks} chunks, the tail padded, of "
+          f"{per_chunk})")
+    if launches != want:
+        raise AssertionError("run_full's TV-L1 launches differ from the per-chunk schedule")
+    rows["warp_sample"]["tv_run_full_launches"] = launches["warp_sample"]
+    rows["pd_chain"]["tv_run_full_launches"] = launches["pd_block"]
+    if (flow.vx.shape != (n, 1) or not np.isnan(flow.vx[0]).all()
+            or not np.isfinite(flow.vx[1:]).all() or pc1.shape != (n, 1) or len(mets) != 1):
+        raise AssertionError(f"features {flow.vx.shape}, PC1 {pc1.shape}, {len(mets)} metric "
+                             "rows; NaN is expected at frame 0 only")
+    st = {k: round(v, 4) for k, v in timer.times.items()}
+    print(f"run_full under TV-L1: {wall:.4f} s, {n / wall:.2f} frames/s end to end (first "
+          f"call: allocator warm-up inside); stage seconds {st}; peak device memory {peak:.2f} "
+          f"GiB on [{smi}]")
+
+    kernel_flow = fm.tvl1_flow
+    fm.tvl1_flow = functools.partial(kernel_flow, kernels=False)
+    try:
+        tc.reset_launch_counts()
+        t0 = time.perf_counter()
+        plain, plain_pc1, _ = _tvl1_run_full(base, n, cfg, device)
+        plain_s = time.perf_counter() - t0
+        plain_launches = dict(tc.LAUNCHES)
+    finally:
+        fm.tvl1_flow = kernel_flow
+    if any(plain_launches.values()):
+        raise AssertionError(f"the plain run launched TV-L1 kernels: {plain_launches}")
+    d = max(float(np.abs(getattr(flow, c)[1:] - getattr(plain, c)[1:]).max())
+            for c in ("vx", "vy", "mag"))
+    fin = np.isfinite(pc1[:, 0]) & np.isfinite(plain_pc1[:, 0])
+    if fin.sum() < 3:
+        raise AssertionError(f"{int(fin.sum())} finite PC1 samples")
+    corr = float(np.corrcoef(pc1[fin, 0], plain_pc1[fin, 0])[0, 1])
+    print(f"kernel vs plain path through run_full ({plain_s:.1f} s): features max |d| "
+          f"{d:.3e} px/frame (bar {FLOW_TOL_PX}); PC1 max |d| "
+          f"{float(np.abs(pc1[fin, 0] - plain_pc1[fin, 0]).max()):.3e}, corr {corr:.9f} over "
+          f"{int(fin.sum())} samples (bar {PC1_CORR})")
+    if not d <= FLOW_TOL_PX:
+        raise AssertionError("run_full's TV-L1 kernel path disagrees with the plain path")
+    if not corr >= PC1_CORR:
+        raise AssertionError("run_full's TV-L1 PC1 disagrees with the plain path's")
+
+    # K5's device time per level in a profiled run_flow_stage: each chunk
+    # launches n_warps K5 a level, coarsest level first.
+    from torch.profiler import ProfilerActivity, profile
+
+    m = TV_RUN_PROFILED
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_flow_stage(_pingpong_source(base, m), _skeleton(m), [HD_ROI], cfg, chunk,
+                       device=device)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    k5 = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                if getattr(e, "device_type", None) == cuda and "warp_sample_kernel" in e.name)
+    if not k5:
+        print("profiler recorded no K5 launch; no per-level reading")
+        return
+    n_prof = -(-(m - 1) // chunk) * per_chunk["warp_sample"]
+    if len(k5) != n_prof:
+        raise AssertionError(f"the profiler recorded {len(k5)} K5 launches, not {n_prof}")
+    per_level = {k: [] for k in range(len(sizes))}
+    for i, (s, e) in enumerate(k5):
+        per_level[len(sizes) - 1 - (i % per_chunk["warp_sample"]) // p.n_warps].append(e - s)
+    events = rows["warp_sample"].get(f"tv_{h}x{w}_levels", {})
+    total_bound = total_ms = 0.0
+    traced = {}
+    for k, us in per_level.items():
+        bound, _ = _bound(chunk * sizes[k][0] * sizes[k][1], *_k5_cost(3))
+        ms = statistics.median(us) / 1e3
+        total_bound += bound * len(us)
+        total_ms += sum(us) / 1e3
+        ev = events.get(k, {}).get("k5_ms")
+        traced[k] = {"ms": ms, "bound_ms": bound, "share": bound / ms}
+        print(f"  K5 at level {k} {sizes[k]}: {len(us)} launches, median {ms:.4f} ms in the "
+              f"trace, share {100 * bound / ms:.1f}% of its bound {bound:.4f} ms; phase 17's "
+              f"CUDA-event median " + (f"{ev:.4f} ms ({100 * bound / ev:.1f}%)" if ev else
+                                       "not taken"))
+    print(f"  K5 over the profiled call: {100 * total_bound / total_ms:.1f}% of its bound "
+          f"(the benchmark's k5_roofline reads this way: the bound over the trace's kernel time)")
+    rows["warp_sample"]["tv_run_full_traced_levels"] = traced
+
+
 def main():
     smi = phase_device()
     from bench import render_clip
@@ -3008,7 +3158,8 @@ def main():
                         (14, lambda: phase_metric_head(device, smi, *out[9])),
                         (15, lambda: phase_hd(device, smi, rows)),
                         (16, lambda: phase_bilateral(device, smi, rows)),
-                        (17, lambda: phase_tvl1_clinical(device, smi, rows))):
+                        (17, lambda: phase_tvl1_clinical(device, smi, rows)),
+                        (18, lambda: phase_tvl1_run_full(device, smi, rows))):
         t0 = time.perf_counter()
         out[number] = run()
         print(f"phase {number}: {time.perf_counter() - t0:.1f} s")

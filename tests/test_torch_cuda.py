@@ -1094,3 +1094,86 @@ def test_metric_head_batched_on_the_card(card, rows_per_block, monkeypatch):
         assert np.array_equal(got.peak_n, ref.peak_n)
         for f in ("pc1_area", "ads_slope", "ads_r2", "kendall_tau", "kendall_p"):
             np.testing.assert_allclose(getattr(got, f), getattr(ref, f), rtol=rtol, err_msg=f)
+
+
+# --- TV-L1 through run_full at 1080p (BASELINE config 5) -----------------
+
+HD_ROI = [[420.0, 270.0], [1560.0, 330.0], [1500.0, 900.0], [360.0, 840.0]]
+
+
+def _hd_tvl1_recording(card, n=41):
+    """A 1080p recording of n frames (a 17-frame rendered base played
+    forward and back, the benchmark's law) and its skeleton."""
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    from benchmark.lib import calls, render
+
+    base = render.render_pool({"frames": 17, "blobs": [{"x_frac": 0.5, "hz": 3.0}]}, 1, 1080,
+                              1920, 30.0, 2**31 + 29, card)[0]
+    return base, calls.played_source(base, "pingpong", n, 30.0), calls.skeleton(n, 30.0, 0.3)
+
+
+def _hd_tvl1_run(card, chunk, n=41, kernels=True, monkeypatch=None):
+    """run_full under PipelineConfig(flow=TVL1Params()) on the card: (flow, pc1)."""
+    from btcs_pnes_optical_flow_tpu_torch.config import PipelineConfig
+    from btcs_pnes_optical_flow_tpu_torch.models import flow as fm
+    from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_full
+
+    if not kernels:
+        plain = tv.tvl1_flow
+        monkeypatch.setattr(fm, "tvl1_flow", lambda *a, **k: plain(*a, kernels=False, **k))
+    _, src, skel = _hd_tvl1_recording(card, n)
+    flow, pc1, _ = run_full(src, skel, [np.asarray(HD_ROI)], PipelineConfig(flow=tv.TVL1Params()),
+                            chunk, device=card)
+    return flow, pc1
+
+
+def test_run_full_tvl1_at_1080p_kernels_match_plain(card, monkeypatch):
+    """run_full under TVL1Params() on three 1080p chunks (16, 16 and a
+    padded 8 pairs): K5 at every level, K6 at 270x480 (the levels above run
+    the epsilon loop), within the path's px bar of the plain versions."""
+    tc.reset_launch_counts()
+    kern, _ = _hd_tvl1_run(card, 16)
+    # Per chunk: 3 levels x 5 warps of K5, 5 chains of 8+8+8+6 at level 2.
+    assert tc.LAUNCHES == {"warp_sample": 45, "pd_chain": 15, "pd_block": 60}
+    plain, _ = _hd_tvl1_run(card, 16, kernels=False, monkeypatch=monkeypatch)
+    for c in ("vx", "vy", "mag"):
+        a, b = getattr(kern, c)[1:], getattr(plain, c)[1:]
+        assert np.isfinite(a).all()
+        assert np.abs(a - b).max() <= 1e-3, c  # the path's px bar
+
+
+def test_run_full_tvl1_does_not_depend_on_the_chunk(card):
+    """The per-pair epsilon stop and the per-pair reduction: 16-pair and
+    7-pair chunks give the same bits on the card, features and PC1 (81
+    frames: the 2-s PCA window fits)."""
+    (a, pa), (b, pb) = _hd_tvl1_run(card, 16, n=81), _hd_tvl1_run(card, 7, n=81)
+    for c in ("vx", "vy", "mag"):
+        assert np.array_equal(getattr(a, c), getattr(b, c), equal_nan=True), c
+    assert np.isfinite(pa).any() and np.array_equal(pa, pb, equal_nan=True)
+
+
+def test_run_full_tvl1_matches_the_plain_reference_at_1080p(card):
+    """One 16-pair chunk at 1080x1920 against the benchmark's plain TV-L1
+    reference (TF32 off, as the benchmark's check runs it)."""
+    from benchmark.reference import tvl1 as rt
+    from benchmark.reference.farneback import roi_features
+    from benchmark.reference.roi import fill_poly
+
+    base, _, _ = _hd_tvl1_recording(card)
+    prog, _ = _hd_tvl1_run(card, 16, n=17)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        fr = torch.as_tensor(base, device=card)
+        ref = roi_features(rt.flow_pairs(fr[:-1], fr[1:], rt.Params()), 0.3,
+                           [fill_poly(1080, 1920, HD_ROI)])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    got = np.stack([prog.vx, prog.vy, prog.mag], 1)[1:]
+    # The same TV-L1 with divisions where the program multiplies by
+    # reciprocals: ulps a step, through the data term's thresholds, the
+    # epsilon stop's exit by an iteration, averaged over the ROI.
+    assert np.abs(got - ref).max() <= 1e-4

@@ -14,7 +14,6 @@ both equal to an uninterrupted run.  The JAX package's ``run_flow_stage``
 loads a short tail chunk into a longer run, which the port recomputes."""
 
 import dataclasses
-import shutil
 
 import numpy as np
 import pytest
@@ -170,11 +169,14 @@ def test_short_tail_resume_equals_uninterrupted(clip, whole, tmp_path, counted, 
     over the whole recording recomputes that chunk (4 pairs there) and
     loads the rest.  The JAX package's run_flow_stage loads the short chunk
     into the whole recording: its features come out shorter than its
-    timestamps."""
+    timestamps.  Each package resumes a store of its own writing (the
+    port's store also records the flow engine and its settings)."""
     ck = tmp_path / "ck"
     _stage(ArraySource(clip[:14], 30.0), str(ck))
     assert len(ChunkStore(str(ck)).load(12)["vx"]) == 1
-    shutil.copytree(ck, tmp_path / "jax_ck")
+    jpipeline.run_flow_stage(JArraySource(clip[:14], fps=30.0), _skeleton(N_FRAMES), [ROI], CFG,
+                             4, checkpoint_dir=str(tmp_path / "jax_ck"))
+    assert len(ChunkStore(str(tmp_path / "jax_ck")).load(12)["vx"]) == 1
     counted.clear()
     with caplog.at_level("WARNING", logger="btcs_pnes_optical_flow_tpu_torch"):
         resumed = _stage(ArraySource(clip, 30.0), str(ck))
