@@ -58,6 +58,35 @@
 //    holds a D-deep one.  Blocks are persistent over (frame, tile) units, so
 //    ragged tiles and any batch are covered without a grid-z loop.
 //
+// K6 ε step pd_eps_step_kernel — replaces no TPU kernel: the JAX package runs
+//    this loop in XLA ops (the lax.while_loop of its "xla" engine,
+//    btcs_pnes_optical_flow_tpu/ops/tvl1.py pd_iter).  One
+//    iteration of the per-pair ε loop (ops/tvl1.py pd_chain_plain with
+//    epsilon > 0), which runs at the pyramid levels whose fixed-length chain
+//    _resident_ok rejects (1080p levels 0–1, 720p level 0): the loop reads
+//    whether any pair still iterates after every step, so one launch is one
+//    iteration.  Outputs repeat the plain loop: u_out = active[b] ? u_new : u
+//    (the pair's mask from before this step's stop test), the duals from the
+//    gradient of u_new whatever the mask, and the squared update
+//    (u_new−u)² + (v_new−v)² whose per-pair mean the wrapper takes with the
+//    plain loop's own reduction.
+//    Bound: bytes — 6 planes in and u, v, 4 duals and the squared update out
+//    (52 B a pixel, the first step reading no duals) or 4 duals more in
+//    (68 B) against ~50 float32 operations.  The plain loop streams ~90
+//    whole planes an iteration (~1 KB a pixel).
+//    Design: K6's depth-1 region and arithmetic (the 32×64 tile grown by one
+//    pixel, the duals staged with cp.async, the same primal() and dual()),
+//    so it is bit-equal to a plain iteration as K6 is.  With one iteration
+//    nothing needs to stay on chip between steps, so the kernel is cut for
+//    memory traffic instead: 256-thread blocks, one (frame, tile) unit each,
+//    four resident per SM, so that one block's loads overlap another's
+//    arithmetic; the state and invariants are read straight into registers
+//    in the primal step (no staging of u, v), u_out, v_out and the squared
+//    update are written from there, and the duals from the dual step, with
+//    no write-back through shared memory.  The invariants l_t·|∇I|² and
+//    -1/max(|∇I|², 1e-9) are computed in registers as in K6: the plain
+//    loop's set-up planes are never written.
+//
 // Built with -fmad=false (ops/_build.py): every product is rounded before its sum,
 // so each kernel repeats the float32 operations of its plain PyTorch version
 // (ops/tvl1.py warp_sample_cf_plain, pd_chain_plain) in their order; sqrtf and the
@@ -449,6 +478,191 @@ cudaError_t launch_pd_block(const PdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- K6 ε step
+
+constexpr int kEpsThreads = 256;
+constexpr int kEpsBlocksPerSm = 4;  // 4 × 53.9 KB of shared memory a block
+
+struct EpsArgs {
+  const float* u;              // (B, H, W) state in
+  const float* v;
+  const float* p;              // [p11, p12, p21, p22] planes n apart, or null: zero duals
+  const float* rho_c;          // (B, H, W) invariant planes of the warp
+  const float* i1wx;
+  const float* i1wy;
+  const float* grad_sq;
+  const unsigned char* active; // (B,) bool: the pair still iterates
+  float* u_out;                // (B, H, W) state out: never one of the inputs
+  float* v_out;
+  float* p_out;                // [p11, p12, p21, p22] out
+  float* sq;                   // (B, H, W) squared update out, or null
+  long long batch;
+  int h, w;
+  float l_t, theta, tau_theta;
+};
+
+__device__ __forceinline__ unsigned edge_flags(int x, int y, int h, int w) {
+  return (x == 0 ? kX0 : 0u) | (x == w - 1 ? kX1 : 0u) | (y == 0 ? kY0 : 0u) |
+         (y == h - 1 ? kY1 : 0u);
+}
+
+// One block per (frame, tile) unit: K6's depth-1 region, the tile grown by one
+// pixel, in horizontal pairs; pair tid + k·kEpsThreads for k < SLOTS.  The
+// primal step runs on region rows 1 … RH−1, the dual step on rows 1 … RH−2
+// (the tile's), as pd_block_kernel<1> does.
+__global__ void __launch_bounds__(kEpsThreads, kEpsBlocksPerSm)
+    pd_eps_step_kernel(const EpsArgs a) {
+  using R = PdRegion<1>;
+  constexpr int RH = R::RH, RW = R::RW, N = R::N;
+  constexpr int SLOTS = (N / 2 + kEpsThreads - 1) / kEpsThreads;
+  extern __shared__ float4 smem4[];
+  float* s_u = reinterpret_cast<float*>(smem4) + 2;
+  float* s_v = s_u + N;
+  float* s11 = s_v + N;
+  float* s12 = s11 + N;
+  float* s21 = s12 + N;
+  float* s22 = s21 + N;
+  const int h = a.h, w = a.w;
+  const float l_t = a.l_t, theta = a.theta, tt = a.tau_theta;
+  const long long plane = (long long)h * w;
+  const long long n = a.batch * plane;
+  const int n_tx = (w + kPdTW - 1) / kPdTW;
+  const int per_frame = ((h + kPdTH - 1) / kPdTH) * n_tx;
+  const long long b = blockIdx.x / per_frame;
+  const int rem = (int)(blockIdx.x - b * per_frame);
+  const int ty = rem / n_tx;
+  const int gy0 = ty * kPdTH - 1;  // region origin in the image
+  const int gx0 = (rem - ty * n_tx) * kPdTW - 1;
+  const long long base = b * plane;
+  const bool keep = a.active[b] != 0;
+  const int tid = threadIdx.x;
+
+  // The duals of the region, or zeros.
+#pragma unroll
+  for (int k = 0; k < SLOTS; ++k) {
+    const int i0 = 2 * (tid + k * kEpsThreads);
+    if (i0 >= N) break;
+    const int r = i0 / RW;
+    const long long row = base + (long long)clampi(gy0 + r, 0, h - 1) * w;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = i0 + e;
+      const long long q = row + clampi(gx0 + (i - r * RW), 0, w - 1);
+      if (a.p) {
+        cp_async4(s11 + i, a.p + q);
+        cp_async4(s12 + i, a.p + n + q);
+        cp_async4(s21 + i, a.p + 2 * n + q);
+        cp_async4(s22 + i, a.p + 3 * n + q);
+      } else {
+        s11[i] = s12[i] = s21[i] = s22[i] = 0.f;
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // The primal step on rows 1 … RH−1; the tile's pixels write u_out, v_out
+  // and the squared update.
+#pragma unroll
+  for (int k = 0; k < SLOTS; ++k) {
+    const int i0 = 2 * (tid + k * kEpsThreads);
+    if (i0 < RW || i0 >= N) continue;
+    const int r = i0 / RW;
+    const int y = gy0 + r;
+    const long long row = base + (long long)clampi(y, 0, h - 1) * w;
+    float u[2], v[2], un[2], vn[2];
+    unsigned f[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int x = gx0 + (i0 + e - r * RW);
+      const long long q = row + clampi(x, 0, w - 1);
+      f[e] = edge_flags(x, y, h, w);
+      u[e] = __ldg(a.u + q);
+      v[e] = __ldg(a.v + q);
+    }
+    const float2 q11 = ld2(s11 + i0), q12 = ld2(s12 + i0);
+    const float2 q21 = ld2(s21 + i0), q22 = ld2(s22 + i0);
+    const float2 up12 = ld2(s12 + i0 - RW), up22 = ld2(s22 + i0 - RW);
+    const float left11[2] = {s11[i0 - 1], q11.x}, left21[2] = {s21[i0 - 1], q21.x};
+    const float own11[2] = {q11.x, q11.y}, own12[2] = {q12.x, q12.y};
+    const float own21[2] = {q21.x, q21.y}, own22[2] = {q22.x, q22.y};
+    const float upp12[2] = {up12.x, up12.y}, upp22[2] = {up22.x, up22.y};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int x = gx0 + (i0 + e - r * RW);
+      const long long q = row + clampi(x, 0, w - 1);
+      const float gs = __ldg(a.grad_sq + q);
+      un[e] = u[e];
+      vn[e] = v[e];
+      primal(un[e], vn[e], __ldg(a.rho_c + q), __ldg(a.i1wx + q), __ldg(a.i1wy + q), l_t * gs,
+             -1.f / fmaxf(gs, 1e-9f), l_t, theta, f[e], own11[e], left11[e], own12[e],
+             upp12[e], own21[e], left21[e], own22[e], upp22[e]);
+    }
+    st2(s_u + i0, un[0], un[1]);
+    st2(s_v + i0, vn[0], vn[1]);
+    if (r > kPdTH || y >= h) continue;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = i0 + e - r * RW;
+      const int x = gx0 + c;
+      if (c < 1 || c > kPdTW || x >= w) continue;
+      const long long q = base + (long long)y * w + x;
+      a.u_out[q] = keep ? un[e] : u[e];
+      a.v_out[q] = keep ? vn[e] : v[e];
+      if (a.sq) {
+        const float du = un[e] - u[e];
+        const float dv = vn[e] - v[e];
+        a.sq[q] = du * du + dv * dv;
+      }
+    }
+  }
+  __syncthreads();
+
+  // The dual step on the tile's rows 1 … RH−2; its pixels write the duals.
+#pragma unroll
+  for (int k = 0; k < SLOTS; ++k) {
+    const int i0 = 2 * (tid + k * kEpsThreads);
+    if (i0 < RW || i0 >= (RH - 1) * RW) continue;
+    const int r = i0 / RW;
+    const int y = gy0 + r;
+    if (y >= h) continue;
+    const float2 uo = ld2(s_u + i0), vo = ld2(s_v + i0);
+    const float2 ud = ld2(s_u + i0 + RW), vd = ld2(s_v + i0 + RW);
+    float2 q11 = ld2(s11 + i0), q12 = ld2(s12 + i0);
+    float2 q21 = ld2(s21 + i0), q22 = ld2(s22 + i0);
+    const int x0 = gx0 + (i0 - r * RW);
+    dual(uo.x, vo.x, uo.y, ud.x, vo.y, vd.x, edge_flags(x0, y, h, w), tt, q11.x, q12.x, q21.x,
+         q22.x);
+    dual(uo.y, vo.y, s_u[i0 + 2], ud.y, s_v[i0 + 2], vd.y, edge_flags(x0 + 1, y, h, w), tt,
+         q11.y, q12.y, q21.y, q22.y);
+    const float o11[2] = {q11.x, q11.y}, o12[2] = {q12.x, q12.y};
+    const float o21[2] = {q21.x, q21.y}, o22[2] = {q22.x, q22.y};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = i0 + e - r * RW;
+      const int x = gx0 + c;
+      if (c < 1 || c > kPdTW || x >= w) continue;
+      const long long q = base + (long long)y * w + x;
+      a.p_out[q] = o11[e];
+      a.p_out[n + q] = o12[e];
+      a.p_out[2 * n + q] = o21[e];
+      a.p_out[3 * n + q] = o22[e];
+    }
+  }
+}
+
+// One launch of pd_eps_step_kernel: a block per (frame, tile) unit.  The
+// wrapper guarantees fewer than 2^31 units.
+cudaError_t launch_pd_eps_step(const EpsArgs& a, cudaStream_t stream) {
+  const size_t smem = pd_smem_bytes<1>();
+  cudaError_t err = set_smem((const void*)pd_eps_step_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const long long units =
+      a.batch * ((a.h + kPdTH - 1) / kPdTH) * (long long)((a.w + kPdTW - 1) / kPdTW);
+  pd_eps_step_kernel<<<(unsigned)units, kEpsThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -501,6 +715,18 @@ int tv_pd_block(const float* u, const float* v, const float* p, const float* rho
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// One iteration of the per-pair ε loop.  p null starts the duals at zero;
+// sq null writes no squared update.
+int tv_pd_eps_step(const float* u, const float* v, const float* p, const float* rho_c,
+                   const float* i1wx, const float* i1wy, const float* grad_sq,
+                   const unsigned char* active, float* u_out, float* v_out, float* p_out,
+                   float* sq, long long batch, int h, int w, float l_t, float theta,
+                   float tau_theta, void* stream) {
+  const EpsArgs a = {u,     v,     p,     rho_c, i1wx, i1wy, grad_sq, active, u_out,
+                     v_out, p_out, sq,    batch, h,    w,    l_t,     theta,  tau_theta};
+  return (int)launch_pd_eps_step(a, (cudaStream_t)stream);
 }
 
 }  // extern "C"

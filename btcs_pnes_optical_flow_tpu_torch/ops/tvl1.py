@@ -13,7 +13,9 @@ hand-written CUDA kernel behind ``ops/tvl1_cuda.py``:
   (x+u, y+v) with cv2.remap's clamp;
 - ``pd_chain_plain`` (K6): the primal–dual chain, in the factored form
   of the JAX package's resident kernel (hoisted -1/|∇I|², reciprocal
-  dual scaling), with an optional ε early exit.
+  dual scaling), with an optional ε early exit; on a CUDA tensor the
+  fixed-length chain is K6 and the ε loop one launch of K6's ε step an
+  iteration (``tvl1_cuda.pd_eps_chain``).
 
 The ε exit is per pair: each pair of the batch keeps the flow of the
 iteration at which its own mean squared update fell below ε², so a pair's
@@ -29,14 +31,14 @@ tensor; the banded-warp knobs are accepted and ignored, since a direct
 sample has no reach limit and never clips).  ``pd_engine`` "resident",
 or "auto" on a CUDA tensor, asks for the fixed-length chain (K6 on a
 CUDA tensor), which runs the full static ``n_iterations`` and ignores ε;
-"xla", or "auto" on a CPU tensor, runs the ε early-exit loop in plain
-PyTorch on either device.  As in the JAX package (``ops/tvl1.py
-_tvl1_level``), the fixed-length chain is then narrowed per pyramid
-level by ``_resident_ok``, a pure function of the level's shape and
-``n_iterations``: a level whose resident row blocks would recompute a
-halo taller than themselves (padded width ≥ 896 px at the default 30
-iterations, e.g. level 0 of 720×1280 and levels 0–1 of 1080×1920) runs
-the ε loop instead, on whatever device it is on.  That is the
+"xla", or "auto" on a CPU tensor, runs the ε early-exit loop (K6's ε
+step on a CUDA tensor, plain PyTorch on the CPU).  As in the JAX
+package (``ops/tvl1.py _tvl1_level``), the fixed-length chain is then
+narrowed per pyramid level by ``_resident_ok``, a pure function of the
+level's shape and ``n_iterations``: a level whose resident row blocks
+would recompute a halo taller than themselves (padded width ≥ 896 px at
+the default 30 iterations, e.g. level 0 of 720×1280 and levels 0–1 of
+1080×1920) runs the ε loop instead, on whatever device it is on.  That is the
 reference's engine choice, made the same way on every device; it never
 depends on an error.
 
@@ -249,6 +251,7 @@ def _tvl1_level(i0, i1, u, v, p: TVL1Params, resident: bool, kernels: bool):
     """One pyramid level: n_warps × (linearise + primal–dual)."""
     warp = tvl1_cuda.warp_sample_cf if kernels else warp_sample_cf_plain
     chain = tvl1_cuda.pd_chain if kernels else pd_chain_plain
+    eps_chain = tvl1_cuda.pd_eps_chain if kernels else pd_chain_plain
     resident = resident and _resident_ok(*u.shape[-2:], p)
     # I1 and its gradient do not change across the level's warps.
     with _range("tvl1.warp"):
@@ -261,8 +264,8 @@ def _tvl1_level(i0, i1, u, v, p: TVL1Params, resident: bool, kernels: bool):
                 u, v = chain(u, v, *planes, p.n_iterations, p.tau, p.lambda_, p.theta)
         else:
             with _range("tvl1.eps_loop"):
-                u, v = pd_chain_plain(u, v, *planes, p.n_iterations, p.tau, p.lambda_,
-                                      p.theta, epsilon=p.epsilon)
+                u, v = eps_chain(u, v, *planes, p.n_iterations, p.tau, p.lambda_, p.theta,
+                                 epsilon=p.epsilon)
     return u, v
 
 

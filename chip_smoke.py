@@ -43,7 +43,11 @@ Phases (any failed check raises, so the exit code is non-zero):
              its one-call yardstick (F.grid_sample, border, align_corners) in
              alternating rounds; K6 (bit-equal at every run) at each pyramid
              level with its default schedule, and at level 0 at every
-             compiled depth (depth 1 is one launch per iteration);
+             compiled depth (depth 1 is one launch per iteration); K6's ε
+             step at the 1080p level-0 shape (B=16): one step and its stop
+             test bit-equal to the plain iteration and timed against it, the
+             kernel alone against its bytes (first and later step), a whole
+             ε loop bit-equal with one launch an iteration;
 7. TV-L1 slice — tvl1_flow on the 16 pairs with default TVL1Params:
              launch counts against the per-level schedule (15 K5, 15 chains
              of ceil(30 / depth) K6 launches), the kernel path against the
@@ -127,7 +131,8 @@ Phases (any failed check raises, so the exit code is non-zero):
 17. BASELINE config 5 — tvl1_flow on 16 pairs of render_clip(seed=2) at
              720×1280 and 1080×1920: the engine of each level (_resident_ok:
              the epsilon loop at 720p level 0 and 1080p levels 0–1, K6 on the
-             rest), launches against that schedule, K5 at every level and K6
+             rest), launches against that schedule (at least one ε step a
+             warp on the ε-loop levels), K5 at every level and K6
              at every resident level against their plain versions and timed
              with their bounds (K5 beside F.grid_sample at level 0), the call
              against the plain path, the epsilon loop's iterations per level
@@ -140,7 +145,8 @@ Phases (any failed check raises, so the exit code is non-zero):
              the 1080p ROI, chunks of 16 pairs (the benchmark's cell
              tvl1.hd1080_16pairs): the TV-L1 launches, counted from zero just
              before the run, against 15 K5, 5 K6 chains and 20 K6 launches a
-             chunk (the padded tail included), two cascade launches per
+             chunk (the padded tail included) and at least one ε step an ε
+             loop (10 a chunk), two cascade launches per
              band-pass, the features against the same run on the plain path
              (max |d| <= 1e-3 px) and PC1 beside it (corr >= 0.999), then K5's
              device time per pyramid level in a profiled run_flow_stage of two
@@ -194,6 +200,7 @@ TV_SOURCE = "btcs_pnes_optical_flow_tpu_torch/csrc/tvl1.cu"
 FLT_SOURCE = "btcs_pnes_optical_flow_tpu_torch/csrc/filters.cu"
 PALLAS = "btcs_pnes_optical_flow_tpu/ops/farneback_pallas.py"
 TV_PALLAS = "btcs_pnes_optical_flow_tpu/ops/tvl1_pallas.py"
+TV_JAX = "btcs_pnes_optical_flow_tpu/ops/tvl1.py"
 SPATIAL = "btcs_pnes_optical_flow_tpu/parallel/spatial.py"
 JAX_FILTERS = "btcs_pnes_optical_flow_tpu/ops/filters.py"
 TV_PAIRS = 16  # the JAX bench's TV-L1 line: render_clip(17, seed=2)
@@ -304,7 +311,14 @@ TV_KERNELS = (
      "px absolute over one 30-iteration chain, bit-equal: the plain factored "
      "operations in their order, without FMA contraction, on tiles whose halos "
      "are recomputed exactly"),
+    ("pd_eps_step", "K6 eps step", f"no TPU kernel: XLA ops in JAX ({TV_JAX}:225)", 0.0,
+     "px absolute over one step and its stop test, bit-equal: K6's depth-1 arithmetic, "
+     "the pair's mask, the squared update reduced by the plain loop's own mean"),
 )
+# Phase 6's ε step: B=TV_PAIRS at 1080p level 0, and its bytes a pixel with
+# the squared update written: 6 planes in, u, v, 4 duals and sq out (the
+# first step, zero duals), and 4 duals more in after it.
+TV_EPS_STEP_BYTES = (4 * (6 + 7), 4 * (10 + 7))
 
 
 # Phase 3c: the PC1 head's band-pass cascade at the staging rows of the
@@ -1794,6 +1808,8 @@ def phase_tvl1_kernels(tv_clip, device):
     }
     rows = {}
     for name, kid, replaces, tol, why in TV_KERNELS:
+        if name not in calls:
+            continue
         rel = name == "warp_sample"
         rows[name] = _check_and_time(name, kid, TV_SOURCE, replaces, *calls[name],
                                      rtol=tol if rel else None,
@@ -1804,7 +1820,88 @@ def phase_tvl1_kernels(tv_clip, device):
     _set_bound(rows["pd_chain"], b * h * w, *_k6_cost(p.n_iterations), None,
                NO_LIBRARY["pd_chain"])
     _k6_levels_and_depths(rows["pd_chain"], prev, curr, flow_cf, planes, p)
+    rows["pd_eps_step"] = _eps_step_1080p(device, p)
     return rows, flow_plain
+
+
+def _eps_step_1080p(device, p):
+    """K6's ε step at the 1080p level-0 shape, B=TV_PAIRS, on the chain
+    inputs of the kernel path's flow: one step with its stop test held
+    bit-equal to one plain iteration with its stop test and timed against
+    it, the kernel alone timed against its bytes at the HBM rate (the first
+    step, zero duals; a later one, duals read), and a whole ε loop (30
+    iterations, the default ε) bit-equal with one launch an iteration of the
+    plain loop."""
+    from bench import render_clip
+    from btcs_pnes_optical_flow_tpu_torch.ops import tvl1 as tv
+    from btcs_pnes_optical_flow_tpu_torch.ops import tvl1_cuda as tc
+
+    h, w = HD_H, HD_W
+    clip = render_clip(TV_PAIRS + 1, h, w, seed=2)
+    prev = torch.as_tensor(clip[:-1], device=device)
+    curr = torch.as_tensor(clip[1:], device=device)
+    del clip
+    flow_cf = tv.tvl1_flow(prev, curr, p).movedim(-1, 1).contiguous()
+    _, planes = _tv_level_planes(prev, curr, flow_cf, 0, p)
+    del prev, curr, flow_cf
+    b = planes[0].shape[0]
+    px = planes[0].numel()
+    print(f"K6 eps step at 1080p level 0, {tuple(planes[0].shape)}:")
+    consts = (p.tau, p.lambda_, p.theta)
+    name, kid, replaces, tol, why = next(k for k in TV_KERNELS if k[0] == "pd_eps_step")
+    tc.reset_launch_counts()
+    row = _check_and_time(name, kid, TV_SOURCE, replaces,
+                          lambda: tc.pd_eps_chain(*planes, 1, *consts, p.epsilon),
+                          lambda: tv.pd_chain_plain(*planes, 1, *consts, epsilon=p.epsilon),
+                          rtol=None, abs_tol=tol, why=why, reps=TV_REPS)
+    # The kernel alone: raw launches into preallocated outputs.
+    lib = tc.library()
+    active = torch.ones((b,), dtype=torch.bool, device=device)
+    out_uv = torch.empty((2, *planes[0].shape), device=device)
+    duals = torch.empty((2, 4, *planes[0].shape), device=device)
+    sq = torch.empty_like(planes[0])
+    fixed = [t.data_ptr() for t in planes[2:]]
+
+    def launch(first):
+        src = None if first else duals[0].data_ptr()
+        tc._launch(lib.tv_pd_eps_step, planes[0].data_ptr(), planes[1].data_ptr(), src, *fixed,
+                   active.data_ptr(), out_uv[0].data_ptr(), out_uv[1].data_ptr(),
+                   duals[1].data_ptr(), sq.data_ptr(), b, *planes[0].shape[1:],
+                   p.lambda_ * p.theta, p.theta, p.tau / p.theta)
+
+    launch(True)
+    duals[0].copy_(duals[1])
+    alone = {}
+    for first, by in zip((True, False), TV_EPS_STEP_BYTES):
+        ms = statistics.median([_median_ms(lambda: launch(first), TV_REPS) for _ in range(4)])
+        bound = px * by / HBM_BYTES_PER_S * 1e3
+        alone["first" if first else "later"] = {"ms": ms, "bound_ms": bound, "bytes_per_px": by}
+        print(f"  kernel alone, {'first step (zero duals)' if first else 'later step'}: "
+              f"{ms:.4f} ms, bound {bound:.4f} ms ({by} B/px at {HBM_BYTES_PER_S:.3g} B/s), "
+              f"share {100 * bound / ms:.1f}%")
+    first = alone["first"]
+    row.update(bound_ms=first["bound_ms"], bound_by="bytes",
+               share_of_bound=first["bound_ms"] / first["ms"], library_ms=None,
+               kernel_alone=alone)
+    print(f"  one step with its stop test {row['ms']:.4f} ms vs the plain iteration "
+          f"{row['plain_ms']:.4f} ms ({row['plain_ms'] / row['ms']:.1f}x)")
+
+    # A whole ε loop: one launch an iteration of the plain loop.
+    log = []
+    with _eps_loop_spy(log):
+        tv.pd_chain_plain(*planes, p.n_iterations, *consts, epsilon=p.epsilon)
+    plain_its = log[0][1]
+    tc.reset_launch_counts()
+    kern = tc.pd_eps_chain(*planes, p.n_iterations, *consts, p.epsilon)
+    steps = tc.LAUNCHES["pd_eps_step"]
+    plain = tv.pd_chain_plain(*planes, p.n_iterations, *consts, epsilon=p.epsilon)
+    same = all(torch.equal(k, q) for k, q in zip(kern, plain))
+    print(f"  a whole ε loop ({p.n_iterations} iterations at most, epsilon {p.epsilon}): "
+          f"{steps} launches, the plain loop {plain_its} iterations; torch.equal {same}")
+    if not same or steps != plain_its:
+        raise AssertionError("the ε step's loop differs from the plain loop")
+    row["launches"] = steps
+    return row
 
 
 def _k5_yardstick(src, flow_cf, reps=REPS):
@@ -1906,6 +2003,7 @@ def phase_tvl1_slice(tv_clip, device, smi, rows, flow_plain):
     blocks = tc.pd_schedule(p.n_iterations)
     want = {"warp_sample": len(sizes) * p.n_warps, "pd_chain": chains,
             "pd_block": chains * len(blocks)}
+    want["pd_eps_step"] = 0  # every level of the clip runs K6
     print(f"launches: {launches} (expected {want}: {len(sizes)} levels x {p.n_warps} warps, "
           f"{chains} chains on K6, each {len(blocks)} launches of depths {blocks})")
     if launches != want or launches["pd_block"] >= chains * p.n_iterations:
@@ -2773,35 +2871,42 @@ def _texture(h, w, rng, shift=(0.0, 0.0)):
 
 @contextlib.contextmanager
 def _eps_loop_spy(log):
-    """Record each epsilon-loop call of ops/tvl1.py (pd_chain_plain with
-    epsilon > 0) as (level shape, iterations run, seconds): the iterations
-    counted by its divergence calls (two per iteration), the seconds fenced
-    by a synchronise on each side."""
+    """Record each epsilon-loop call of ops/tvl1.py with epsilon > 0 (the
+    plain pd_chain_plain, or tvl1_cuda.pd_eps_chain on the kernel path) as
+    (level shape, iterations run, seconds): the plain loop's iterations
+    counted by its divergence calls (two per iteration), the kernel path's
+    by its ε-step launches, the seconds fenced by a synchronise on each
+    side."""
     from btcs_pnes_optical_flow_tpu_torch.ops import tvl1 as tv
+    from btcs_pnes_optical_flow_tpu_torch.ops import tvl1_cuda as tc
 
-    chain, div = tv.pd_chain_plain, tv._div
+    chain, div, step = tv.pd_chain_plain, tv._div, tc.pd_eps_chain
     divs = [0]
 
     def counted_div(*args):
         divs[0] += 1
         return div(*args)
 
-    def spy(u, v, *args, epsilon=0.0):
-        if epsilon <= 0:
-            return chain(u, v, *args, epsilon=epsilon)
-        torch.cuda.synchronize()
-        divs[0] = 0
-        t0 = time.perf_counter()
-        out = chain(u, v, *args, epsilon=epsilon)
-        torch.cuda.synchronize()
-        log.append((tuple(u.shape[-2:]), divs[0] // 2, time.perf_counter() - t0))
-        return out
+    def timed(fn, iterations):
+        def spy(u, v, *args, epsilon=0.0):
+            if epsilon <= 0:
+                return fn(u, v, *args, epsilon=epsilon)
+            torch.cuda.synchronize()
+            n0 = iterations()
+            t0 = time.perf_counter()
+            out = fn(u, v, *args, epsilon=epsilon)
+            torch.cuda.synchronize()
+            log.append((tuple(u.shape[-2:]), iterations() - n0, time.perf_counter() - t0))
+            return out
 
-    tv.pd_chain_plain, tv._div = spy, counted_div
+        return spy
+
+    tv.pd_chain_plain, tv._div = timed(chain, lambda: divs[0] // 2), counted_div
+    tc.pd_eps_chain = timed(step, lambda: tc.LAUNCHES["pd_eps_step"])
     try:
         yield
     finally:
-        tv.pd_chain_plain, tv._div = chain, div
+        tv.pd_chain_plain, tv._div, tc.pd_eps_chain = chain, div, step
 
 
 def _tv_clinical(h, w, eps_levels, device, smi, rows):
@@ -2844,11 +2949,15 @@ def _tv_clinical(h, w, eps_levels, device, smi, rows):
     want = {"warp_sample": len(sizes) * p.n_warps, "pd_chain": chains,
             "pd_block": chains * len(tc.pd_schedule(p.n_iterations))}
     print(f"launches {launches} (expected {want}: {len(sizes)} levels x {p.n_warps} warps of "
-          f"K5, K6 chains on the {len(sizes) - len(on_eps)} resident levels)")
-    if launches != want or not launches["warp_sample"] or not launches["pd_block"]:
+          f"K5, K6 chains on the {len(sizes) - len(on_eps)} resident levels; at least one ε "
+          f"step a warp on the {len(on_eps)} others)")
+    steps = launches.pop("pd_eps_step")
+    if (launches != want or not launches["warp_sample"] or not launches["pd_block"]
+            or steps < p.n_warps * len(on_eps)):
         raise AssertionError(f"{tag}: TV-L1 launches differ from the schedule")
     rows["warp_sample"][f"tv_{tag}_launches"] = launches["warp_sample"]
     rows["pd_chain"][f"tv_{tag}_launches"] = launches["pd_block"]
+    rows["pd_eps_step"][f"tv_{tag}_launches"] = steps
     if flow_h.shape != (TV_PAIRS, h, w, 2) or not torch.isfinite(flow_h).all():
         raise AssertionError(f"{tag}: flow {tuple(flow_h.shape)}, or not finite")
     torch.cuda.synchronize()
@@ -3019,6 +3128,7 @@ def phase_tvl1_run_full(device, smi, rows):
                              f"launches: {per_chunk}")
     n_chunks = -(-(n - 1) // chunk)
     want = {k: v * n_chunks for k, v in per_chunk.items()}
+    eps_calls = (len(sizes) - len(fixed)) * p.n_warps * n_chunks  # one ε loop a warp
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3031,12 +3141,15 @@ def phase_tvl1_run_full(device, smi, rows):
         wall = time.perf_counter() - t0
         launches = dict(tc.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = launches.pop("pd_eps_step")
     print(f"launches {launches} (expected {want}: {n_chunks} chunks, the tail padded, of "
-          f"{per_chunk})")
-    if launches != want:
+          f"{per_chunk}); ε steps {steps} in {eps_calls} ε loops ({steps / eps_calls:.3f} a "
+          f"loop, at least 1)")
+    if launches != want or steps < eps_calls:
         raise AssertionError("run_full's TV-L1 launches differ from the per-chunk schedule")
     rows["warp_sample"]["tv_run_full_launches"] = launches["warp_sample"]
     rows["pd_chain"]["tv_run_full_launches"] = launches["pd_block"]
+    rows["pd_eps_step"]["tv_run_full_launches"] = steps
     if (flow.vx.shape != (n, 1) or not np.isnan(flow.vx[0]).all()
             or not np.isfinite(flow.vx[1:]).all() or pc1.shape != (n, 1) or len(mets) != 1):
         raise AssertionError(f"features {flow.vx.shape}, PC1 {pc1.shape}, {len(mets)} metric "

@@ -776,7 +776,8 @@ def _check_chain(planes, n_iterations, depth=tc.PD_DEPTH):
     tc.reset_launch_counts()
     kern = tc.pd_chain(*planes, n_iterations, p.tau, p.lambda_, p.theta, depth=depth)
     blocks = len(tc.pd_schedule(n_iterations, depth))
-    assert tc.LAUNCHES == {"warp_sample": 0, "pd_chain": int(blocks > 0), "pd_block": blocks}
+    assert tc.LAUNCHES == {"warp_sample": 0, "pd_chain": int(blocks > 0), "pd_block": blocks,
+                           "pd_eps_step": 0}
     plain = tv.pd_chain_plain(*planes, n_iterations, p.tau, p.lambda_, p.theta)
     for k, q in zip(kern, plain):
         assert k.shape == planes[0].shape and torch.isfinite(k).all()
@@ -820,7 +821,7 @@ def test_tvl1_flow_kernels_match_plain(card):
     tc.reset_launch_counts()
     kern, clips = tv.tvl1_flow(prev, curr, p, return_clip=True)
     assert tc.LAUNCHES == {"warp_sample": 6, "pd_chain": 6,
-                           "pd_block": 6 * len(tc.pd_schedule(p.n_iterations))}
+                           "pd_block": 6 * len(tc.pd_schedule(p.n_iterations)), "pd_eps_step": 0}
     assert clips.tolist() == [0, 0]
     plain = tv.tvl1_flow(prev, curr, p, kernels=False)
     assert float((kern - plain).abs().max()) <= 1e-3  # the path's px bar
@@ -860,8 +861,10 @@ def test_tvl1_flow_at_720p_kernels_match_plain(card):
     p = tv.TVL1Params()
     tc.reset_launch_counts()
     kern = tv.tvl1_flow(prev[None], curr[None], p)
-    assert tc.LAUNCHES == {"warp_sample": 15, "pd_chain": 10,
-                           "pd_block": 10 * len(tc.pd_schedule(p.n_iterations))}
+    launches = dict(tc.LAUNCHES)
+    assert launches.pop("pd_eps_step") >= 5  # level 0: at least one ε step a warp
+    assert launches == {"warp_sample": 15, "pd_chain": 10,
+                        "pd_block": 10 * len(tc.pd_schedule(p.n_iterations))}
     plain = tv.tvl1_flow(prev[None], curr[None], p, kernels=False)
     assert kern.shape == (1, h, w, 2) and torch.isfinite(kern).all()
     assert float((kern - plain).abs().max()) <= 1e-3  # the path's px bar
@@ -893,6 +896,96 @@ def test_tvl1_card_matches_cpu_where_level_0_takes_the_epsilon_loop(card):
     # move by an iteration.  Before frames were divided on the card as on
     # the CPU, 1.1e-3 px.
     assert float((gpu.cpu() - cpu).abs().max()) <= 1e-3
+
+
+def _eps_planes(card, b=16, h=540, w=960, seed=31):
+    """Chain inputs at the 1080p level-1 shape whose pairs converge at
+    different speeds: pair 0 has no image gradient (its first step moves
+    nothing), the others gradients scaled from 0.1 to 3 times."""
+    u, v, rho_c, i1wx, i1wy, _ = _chain_planes((b, h, w), seed, card)
+    scale = torch.logspace(-1, 0.5, b, device=card)[:, None, None]
+    scale[0] = 0.0
+    i1wx, i1wy, rho_c = i1wx * scale, i1wy * scale, rho_c * scale
+    return u, v, rho_c, i1wx, i1wy, i1wx * i1wx + i1wy * i1wy
+
+
+def _plain_stops(planes, n_iterations, epsilon, p):
+    """The iteration at which each pair of the plain ε loop stops (n + 1:
+    never): its own update equals that of the loop without a stop while it
+    iterates, so the stop is the first step whose mean squared update is
+    below epsilon²."""
+    prev = planes[:2]
+    stops = torch.full((planes[0].shape[0],), n_iterations + 1, device=planes[0].device)
+    for k in range(1, n_iterations + 1):
+        cur = tv.pd_chain_plain(*planes, k, p.tau, p.lambda_, p.theta)
+        err = ((cur[0] - prev[0]) ** 2 + (cur[1] - prev[1]) ** 2).mean(dim=(-2, -1))
+        stops = torch.where((err < epsilon * epsilon) & (stops > n_iterations), k, stops)
+        prev = cur
+    return stops.tolist()
+
+
+def test_pd_eps_step_kernel_matches_the_plain_loop(card):
+    """K6's ε step at B=16 on a 540×960 level, torch.equal to the plain ε
+    loop: pair 0 stops at the first step and the loop runs on for the rest
+    (the duals read back, the ping-pong, the stopped pairs' mask); one
+    launch an iteration of the plain loop."""
+    p = tv.TVL1Params()
+    planes, n, eps = _eps_planes(card), 10, p.epsilon
+    stops = _plain_stops(planes, n, eps, p)
+    assert stops[0] == 1 and max(stops) >= 3, stops
+    tc.reset_launch_counts()
+    kern = tc.pd_eps_chain(*planes, n, p.tau, p.lambda_, p.theta, eps)
+    assert tc.LAUNCHES == {"warp_sample": 0, "pd_chain": 0, "pd_block": 0,
+                           "pd_eps_step": min(max(stops), n)}
+    plain = tv.pd_chain_plain(*planes, n, p.tau, p.lambda_, p.theta, epsilon=eps)
+    for k, q in zip(kern, plain):
+        assert k.shape == planes[0].shape and torch.isfinite(k).all()
+        assert torch.equal(k, q)
+
+
+@pytest.mark.parametrize("shape", PD_SHAPES + [(16, 540, 960)])
+@pytest.mark.parametrize("n_iterations", [0, 1, 2, 7])
+def test_pd_eps_step_kernel_without_a_stop(card, shape, n_iterations):
+    """ε = 0: exactly n_iterations launches and no read, torch.equal to the
+    plain loop (ragged tiles, images smaller than a tile)."""
+    p = tv.TVL1Params()
+    planes = _chain_planes(shape, 32, card)
+    tc.reset_launch_counts()
+    kern = tc.pd_eps_chain(*planes, n_iterations, p.tau, p.lambda_, p.theta, 0.0)
+    assert tc.LAUNCHES["pd_eps_step"] == n_iterations
+    plain = tv.pd_chain_plain(*planes, n_iterations, p.tau, p.lambda_, p.theta, epsilon=0.0)
+    assert all(torch.equal(k, q) for k, q in zip(kern, plain))
+
+
+def test_tvl1_flow_at_1080p_steps_the_epsilon_loop_with_the_kernel(card):
+    """tvl1_flow at 1080×1920, B=2, default parameters: levels 0–1 run the
+    ε loop through K6's ε step, level 2 K6's chains as before; the kernel
+    path array_equal to kernels=False."""
+    h, w = 1080, 1920
+    frames = _img((3, h, w), 33).to(torch.uint8)
+    frames[1:] = torch.roll(frames[0], (1, 2), (0, 1))  # a textured shift, then noise
+    frames[2] = torch.roll(frames[0], (-1, 3), (0, 1))
+    prev, curr = frames[:2].to(card), frames[1:].to(card)
+    p = tv.TVL1Params()
+    tc.reset_launch_counts()
+    kern = tv.tvl1_flow(prev, curr, p)
+    launches = dict(tc.LAUNCHES)
+    assert launches.pop("pd_eps_step") >= 2 * p.n_warps
+    assert launches == {"warp_sample": 15, "pd_chain": 5,
+                        "pd_block": 5 * len(tc.pd_schedule(p.n_iterations))}
+    plain = tv.tvl1_flow(prev, curr, p, kernels=False)
+    assert torch.isfinite(kern).all()
+    assert np.array_equal(kern.cpu().numpy(), plain.cpu().numpy())
+
+
+def test_pd_eps_chain_rejects_bad_inputs(card):
+    planes = [torch.zeros((2, 10, 12), device=card) for _ in range(6)]
+    with pytest.raises(ValueError):
+        tc.pd_eps_chain(*planes[:5], planes[5][:1], 4, 0.25, 0.3, 0.3, 1e-3)
+    with pytest.raises(ValueError):
+        tc.pd_eps_chain(*planes[:5], planes[5].cpu(), 4, 0.25, 0.3, 0.3, 1e-3)
+    with pytest.raises(ValueError):
+        tc.pd_eps_chain(*planes[:5], planes[5].double(), 4, 0.25, 0.3, 0.3, 1e-3)
 
 
 def test_tvl1_wrappers_reject_bad_inputs(card):
@@ -1136,8 +1229,11 @@ def test_run_full_tvl1_at_1080p_kernels_match_plain(card, monkeypatch):
     the epsilon loop), within the path's px bar of the plain versions."""
     tc.reset_launch_counts()
     kern, _ = _hd_tvl1_run(card, 16)
-    # Per chunk: 3 levels x 5 warps of K5, 5 chains of 8+8+8+6 at level 2.
-    assert tc.LAUNCHES == {"warp_sample": 45, "pd_chain": 15, "pd_block": 60}
+    # Per chunk: 3 levels x 5 warps of K5, 5 chains of 8+8+8+6 at level 2,
+    # and at least one ε step a warp at levels 0-1.
+    launches = dict(tc.LAUNCHES)
+    assert launches.pop("pd_eps_step") >= 30
+    assert launches == {"warp_sample": 45, "pd_chain": 15, "pd_block": 60}
     plain, _ = _hd_tvl1_run(card, 16, kernels=False, monkeypatch=monkeypatch)
     for c in ("vx", "vy", "mag"):
         a, b = getattr(kern, c)[1:], getattr(plain, c)[1:]

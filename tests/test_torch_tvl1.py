@@ -217,74 +217,126 @@ def test_tvl1_flow_resident_falls_back_per_level_as_jax(rng, monkeypatch):
     assert shapes == [(1, 56, 448)] * 2
 
 
+def _region_step(region, gy, gx, h, w, j, p):
+    """Iteration j of K6's decomposition on one staged region: region =
+    (u, v, [p11, p12, p21, p22], rho_c, I1wx, I1wy, |∇I|²) over the image
+    rows gy and columns gx (clamped loads), the edge rules at the image's
+    edges by global index, a neighbour past the region's edge replaced by
+    any value (here the pixel itself; the kernels read the next or previous
+    row), and only the kernels' rows computed (u, v on rows j … RH−j, the
+    duals on rows j … RH−1−j).  Returns (u, v, duals)."""
+    uu, vv, ps, rc, wx, wy, gs = region
+    l_t, tau_theta, theta = p.lambda_ * p.theta, p.tau / p.theta, p.theta
+    nig = -1.0 / torch.clamp_min(gs, 1e-9)
+    wx_igs, wy_igs = wx * nig, wy * nig
+    yy, xx = gy[:, None], gx[None, :]
+    rows = torch.arange(len(gy))[:, None]
+    rh = len(gy)
+
+    def div(px, py):
+        left = torch.cat([px[..., :1], px[..., :-1]], -1)
+        up = torch.cat([py[..., :1, :], py[..., :-1, :]], -2)
+        dx = torch.where(xx == 0, px, torch.where(xx == w - 1, 0.0, px) - left)
+        dy = torch.where(yy == 0, py, torch.where(yy == h - 1, 0.0, py) - up)
+        return dx + dy
+
+    def grad(f):
+        right = torch.cat([f[..., 1:], f[..., -1:]], -1)
+        down = torch.cat([f[..., 1:, :], f[..., -1:, :]], -2)
+        return (torch.where(xx < w - 1, right - f, 0.0),
+                torch.where(yy < h - 1, down - f, 0.0))
+
+    rho = rc + wx * uu + wy * vv
+    lo = rho < -l_t * gs
+    hi = rho > l_t * gs
+    d1 = torch.where(lo, l_t * wx, torch.where(hi, -l_t * wx, rho * wx_igs))
+    d2 = torch.where(lo, l_t * wy, torch.where(hi, -l_t * wy, rho * wy_igs))
+    rows_a = (rows >= j) & (rows <= rh - j)
+    uu = torch.where(rows_a, uu + d1 + theta * div(ps[0], ps[1]), uu)
+    vv = torch.where(rows_a, vv + d2 + theta * div(ps[2], ps[3]), vv)
+    ux, uy = grad(uu)
+    vx, vy = grad(vv)
+    r_u = 1.0 / (1.0 + tau_theta * torch.sqrt(ux * ux + uy * uy))
+    r_v = 1.0 / (1.0 + tau_theta * torch.sqrt(vx * vx + vy * vy))
+    upd = ((ps[0] + tau_theta * ux) * r_u, (ps[1] + tau_theta * uy) * r_u,
+           (ps[2] + tau_theta * vx) * r_v, (ps[3] + tau_theta * vy) * r_v)
+    rows_b = (rows >= j) & (rows <= rh - 1 - j)
+    return uu, vv, [torch.where(rows_b, n_, o_) for n_, o_ in zip(upd, ps)]
+
+
+def _tiles(planes, duals, d, tile):
+    """Each tile of the image grown by d on each side, clamped: yields
+    (ty0, tx0, gy, gx, staged region) with the duals zero when None."""
+    u = planes[0]
+    b, h, w = u.shape
+    th, tw = tile
+    for ty0 in range(0, h, th):
+        for tx0 in range(0, w, tw):
+            gy = torch.arange(ty0 - d, ty0 + th + d)
+            gx = torch.arange(tx0 - d, tx0 + tw + d)
+            ry, rx = gy.clamp(0, h - 1), gx.clamp(0, w - 1)
+
+            def crop(t):
+                return t[:, ry][:, :, rx]
+
+            uu, vv, rc, wx, wy, gs = map(crop, planes)
+            ps = [crop(q) for q in duals] if duals else [torch.zeros_like(uu)] * 4
+            yield ty0, tx0, gy, gx, (uu, vv, ps, rc, wx, wy, gs)
+
+
 def _blocked_chain(planes, n_iterations, p, depth, tile):
     """K6's decomposition (csrc/tvl1.cu pd_block_kernel) in plain PyTorch:
     each launch of ``pd_schedule`` stages every tile grown by its depth d
-    on each side (clamped loads), runs d iterations on that region with
-    the edge rules at the image's edges by global index, a neighbour past
-    the region's edge replaced by any value (here the pixel itself; the
-    kernel reads the next or previous row), and only the kernel's
-    rows computed (u, v on rows j … RH−j, the duals on rows j … RH−1−j at
-    iteration j), then crops the tile and stitches it into the next
+    on each side (clamped loads), runs d iterations on that region
+    (``_region_step``), then crops the tile and stitches it into the next
     launch's state."""
     u, v, rho_c, i1wx, i1wy, grad_sq = planes
     b, h, w = u.shape
     th, tw = tile
-    l_t, tau_theta, theta = p.lambda_ * p.theta, p.tau / p.theta, p.theta
     duals = None  # zero in the first launch
     for d in tvl1_cuda.pd_schedule(n_iterations, depth):
         new = [torch.empty_like(u) for _ in range(6)]
-        for ty0 in range(0, h, th):
-            for tx0 in range(0, w, tw):
-                gy = torch.arange(ty0 - d, ty0 + th + d)
-                gx = torch.arange(tx0 - d, tx0 + tw + d)
-                ry, rx = gy.clamp(0, h - 1), gx.clamp(0, w - 1)
-
-                def crop(t):
-                    return t[:, ry][:, :, rx]
-
-                uu, vv, rc, wx, wy, gs = map(crop, (u, v, rho_c, i1wx, i1wy, grad_sq))
-                ps = [crop(q) for q in duals] if duals else [torch.zeros_like(uu)] * 4
-                nig = -1.0 / torch.clamp_min(gs, 1e-9)
-                wx_igs, wy_igs = wx * nig, wy * nig
-                yy, xx = gy[:, None], gx[None, :]
-                rows = torch.arange(len(gy))[:, None]
-
-                def div(px, py):
-                    left = torch.cat([px[..., :1], px[..., :-1]], -1)
-                    up = torch.cat([py[..., :1, :], py[..., :-1, :]], -2)
-                    dx = torch.where(xx == 0, px, torch.where(xx == w - 1, 0.0, px) - left)
-                    dy = torch.where(yy == 0, py, torch.where(yy == h - 1, 0.0, py) - up)
-                    return dx + dy
-
-                def grad(f):
-                    right = torch.cat([f[..., 1:], f[..., -1:]], -1)
-                    down = torch.cat([f[..., 1:, :], f[..., -1:, :]], -2)
-                    return (torch.where(xx < w - 1, right - f, 0.0),
-                            torch.where(yy < h - 1, down - f, 0.0))
-
-                rh = len(gy)
-                for j in range(1, d + 1):
-                    rho = rc + wx * uu + wy * vv
-                    lo = rho < -l_t * gs
-                    hi = rho > l_t * gs
-                    d1 = torch.where(lo, l_t * wx, torch.where(hi, -l_t * wx, rho * wx_igs))
-                    d2 = torch.where(lo, l_t * wy, torch.where(hi, -l_t * wy, rho * wy_igs))
-                    rows_a = (rows >= j) & (rows <= rh - j)
-                    uu = torch.where(rows_a, uu + d1 + theta * div(ps[0], ps[1]), uu)
-                    vv = torch.where(rows_a, vv + d2 + theta * div(ps[2], ps[3]), vv)
-                    ux, uy = grad(uu)
-                    vx, vy = grad(vv)
-                    r_u = 1.0 / (1.0 + tau_theta * torch.sqrt(ux * ux + uy * uy))
-                    r_v = 1.0 / (1.0 + tau_theta * torch.sqrt(vx * vx + vy * vy))
-                    upd = ((ps[0] + tau_theta * ux) * r_u, (ps[1] + tau_theta * uy) * r_u,
-                           (ps[2] + tau_theta * vx) * r_v, (ps[3] + tau_theta * vy) * r_v)
-                    rows_b = (rows >= j) & (rows <= rh - 1 - j)
-                    ps = [torch.where(rows_b, n_, o_) for n_, o_ in zip(upd, ps)]
-                hh, ww = min(th, h - ty0), min(tw, w - tx0)
-                for dst, src in zip(new, (uu, vv, *ps)):
-                    dst[:, ty0:ty0 + hh, tx0:tx0 + ww] = src[:, d:d + hh, d:d + ww]
+        for ty0, tx0, gy, gx, region in _tiles((u, v, rho_c, i1wx, i1wy, grad_sq), duals, d,
+                                               tile):
+            uu, vv, ps = region[:3]
+            for j in range(1, d + 1):
+                uu, vv, ps = _region_step((uu, vv, ps, *region[3:]), gy, gx, h, w, j, p)
+            hh, ww = min(th, h - ty0), min(tw, w - tx0)
+            for dst, src in zip(new, (uu, vv, *ps)):
+                dst[:, ty0:ty0 + hh, tx0:tx0 + ww] = src[:, d:d + hh, d:d + ww]
         u, v, duals = new[0], new[1], new[2:]
+    return u, v
+
+
+def _eps_step_chain(planes, n_iterations, p, epsilon, tile):
+    """K6's ε step (csrc/tvl1.cu pd_eps_step_kernel) and the loop of its
+    wrapper (ops/tvl1_cuda.py pd_eps_chain) in plain PyTorch: each step
+    stages every tile grown by one pixel, runs one iteration there, and
+    writes the tile's u_out = u_new where the pair is still active (else
+    u), the duals of u_new whatever the mask, and the squared update; the
+    loop then stops a pair whose mean squared update is below epsilon²."""
+    u, v, rho_c, i1wx, i1wy, grad_sq = planes
+    b, h, w = u.shape
+    th, tw = tile
+    active = torch.ones((b,), dtype=torch.bool)
+    duals = None
+    for _ in range(n_iterations):
+        keep = active[:, None, None]
+        new = [torch.empty_like(u) for _ in range(7)]
+        for ty0, tx0, gy, gx, region in _tiles((u, v, rho_c, i1wx, i1wy, grad_sq), duals, 1,
+                                               tile):
+            uu, vv, ps = _region_step(region, gy, gx, h, w, 1, p)
+            u0, v0 = region[:2]
+            outs = (torch.where(keep, uu, u0), torch.where(keep, vv, v0), *ps,
+                    (uu - u0) * (uu - u0) + (vv - v0) * (vv - v0))
+            hh, ww = min(th, h - ty0), min(tw, w - tx0)
+            for dst, src in zip(new, outs):
+                dst[:, ty0:ty0 + hh, tx0:tx0 + ww] = src[:, 1:1 + hh, 1:1 + ww]
+        u, v, duals, sq = new[0], new[1], new[2:6], new[6]
+        if epsilon > 0:
+            active = active & ~(sq.mean(dim=(-2, -1)) < epsilon * epsilon)
+            if not bool(active.any()):
+                break
     return u, v
 
 
@@ -306,6 +358,63 @@ def test_blocked_chain_emulation_equals_plain(shape, tile, depth, n_iterations, 
     ref = ttv.pd_chain_plain(*planes, n_iterations, p.tau, p.lambda_, p.theta)
     mine = _blocked_chain(planes, n_iterations, p, depth, tile)
     assert torch.equal(mine[0], ref[0]) and torch.equal(mine[1], ref[1])
+
+
+def _eps_inputs(rng, b, h, w):
+    """Chain inputs whose pairs converge at different speeds: pair 0 has no
+    image gradient (its first step moves nothing), the others gradients
+    scaled from 0.1 to 3 times."""
+    u, v, rho_c, i1wx, i1wy, _ = map(torch.as_tensor, _chain_inputs(rng, b, h, w))
+    scale = torch.logspace(-1, 0.5, b)[:, None, None]
+    scale[0] = 0.0
+    i1wx, i1wy, rho_c = i1wx * scale, i1wy * scale, rho_c * scale
+    return u, v, rho_c, i1wx, i1wy, i1wx * i1wx + i1wy * i1wy
+
+
+@pytest.mark.parametrize("shape,tile,epsilon,n_iterations", [
+    ((4, 45, 67), (8, 16), 1e-3, 6),    # ragged tiles; pairs stop at different steps
+    ((4, 45, 67), (11, 22), 0.0, 3),    # no stop; last tiles one pixel wide
+    ((3, 33, 250), (32, 64), 1e-3, 4),  # the kernel's tile
+    ((3, 33, 250), (32, 64), 1.0, 4),   # every pair stops at the first step
+], ids=["ragged", "no_stop", "kernel_tile", "first_step"])
+def test_eps_step_emulation_equals_the_plain_loop(shape, tile, epsilon, n_iterations, rng):
+    """The ε step's decomposition proves itself on the CPU: one-pixel halos,
+    the mask taken before the stop test, the duals of stopped pairs still
+    stepped and the stop read from the squared-update plane give the plain
+    ε loop bit for bit."""
+    planes = _eps_inputs(rng, *shape)
+    p = ttv.TVL1Params()
+    ref = ttv.pd_chain_plain(*planes, n_iterations, p.tau, p.lambda_, p.theta, epsilon=epsilon)
+    mine = _eps_step_chain(planes, n_iterations, p, epsilon, tile)
+    assert torch.equal(mine[0], ref[0]) and torch.equal(mine[1], ref[1])
+
+
+@pytest.mark.parametrize("epsilon", [0.0, 1e-3, 1.0])
+@pytest.mark.parametrize("n_iterations", [0, 1, 5])
+def test_pd_eps_chain_on_the_cpu_is_the_plain_loop(epsilon, n_iterations, rng):
+    planes = _eps_inputs(rng, 3, 24, 40)
+    p = ttv.TVL1Params()
+    tvl1_cuda.reset_launch_counts()
+    mine = tvl1_cuda.pd_eps_chain(*planes, n_iterations, p.tau, p.lambda_, p.theta, epsilon)
+    ref = ttv.pd_chain_plain(*planes, n_iterations, p.tau, p.lambda_, p.theta, epsilon=epsilon)
+    assert torch.equal(mine[0], ref[0]) and torch.equal(mine[1], ref[1])
+    assert set(tvl1_cuda.LAUNCHES.values()) == {0}
+
+
+def test_the_epsilon_loop_goes_through_the_step_wrapper(rng, monkeypatch):
+    """tvl1_flow sends every ε loop to tvl1_cuda.pd_eps_chain, with the
+    level's ε, and kernels=False to the plain loop; the flow is the same."""
+    f0 = _texture(40, 56, rng)
+    f1 = _texture(40, 56, rng, shift=(0.8, 0.4))
+    p = ttv.TVL1Params(n_scales=2, n_warps=2, n_iterations=6)
+    step, calls = tvl1_cuda.pd_eps_chain, []
+    monkeypatch.setattr(tvl1_cuda, "pd_eps_chain",
+                        lambda u, *a, epsilon: calls.append((tuple(u.shape), epsilon))
+                        or step(u, *a, epsilon))
+    mine = ttv.tvl1_flow(torch.as_tensor(f0), torch.as_tensor(f1), p)
+    assert calls == [((1, 20, 28), p.epsilon)] * 2 + [((1, 40, 56), p.epsilon)] * 2
+    plain = ttv.tvl1_flow(torch.as_tensor(f0), torch.as_tensor(f1), p, kernels=False)
+    assert len(calls) == 4 and torch.equal(mine, plain)
 
 
 def test_pd_schedule():
