@@ -42,6 +42,7 @@ from btcs_pnes_optical_flow_tpu_torch.dataio.video import (
 )
 from btcs_pnes_optical_flow_tpu_torch.models import metrics as metrics_model
 from btcs_pnes_optical_flow_tpu_torch.models import pc1 as pc1_model
+from btcs_pnes_optical_flow_tpu_torch.models.chunks import ChunkDriver
 from btcs_pnes_optical_flow_tpu_torch.models.flow import (
     roi_body_flow,
     roi_body_flow_seq,
@@ -52,10 +53,6 @@ from btcs_pnes_optical_flow_tpu_torch.ops.farneback import roi_dispatch_params
 from btcs_pnes_optical_flow_tpu_torch.ops.tvl1 import TVL1Params
 from btcs_pnes_optical_flow_tpu_torch.utils import timing
 from btcs_pnes_optical_flow_tpu_torch.utils.timing import StageTimer, logger
-
-# Chunks in flight before the oldest is resolved on the host: the device
-# computes chunk k while the host decodes and dispatches the next ones.
-_PIPELINE_DEPTH = 2
 
 
 def escalate_clipped_pairs(
@@ -148,11 +145,11 @@ def run_flow_stage(
     flow engine with its parameters (``config.flow`` as given); resuming
     it under other values raises ValueError.
 
-    A ``timer`` collects host spans (``StageTimer.span``, no fence) of
-    each computed chunk: "flow.copy" (the frames and axes to the device),
-    "flow.launch" (enqueueing its flow; the span's count is the chunks
-    computed), "flow.readback" (the clip count, the three feature reads
-    and the NaN mask) and "flow.store" (the checkpoint write).
+    The chunks go through ``models/chunks.py ChunkDriver``: one chunk
+    shape, two chunks in flight, a raise on a non-zero clip count.  A
+    ``timer`` collects the driver's host spans of each computed chunk,
+    "flow.copy", "flow.launch" (its count is the chunks computed) and
+    "flow.readback", and "flow.store" (the checkpoint write).
     "flow.decode_wait" holds each wait on the prefetch queue: once per
     chunk handed over, resumed or not, and once at the end of the stream.
     """
@@ -176,43 +173,21 @@ def run_flow_stage(
             config, flow=roi_dispatch_params(config.flow, h, w, roi_masks))
 
     rows_t: List[np.ndarray] = []
-    feats_vx: List[np.ndarray] = []
-    feats_vy: List[np.ndarray] = []
-    feats_mag: List[np.ndarray] = []
-    pending = []
+    feats: List[tuple] = []  # (vx, vy, mag) per chunk
     all_pos: List[Optional[float]] = []
     n_frames = 0
     pairs_done = 0
     t_start = time.perf_counter()
 
-    def resolve(entry):
+    def sink(key, vx, vy, mg):
         nonlocal pairs_done
-        first, n_pairs, valid, t_chunk, sk, feats, clips = entry
-        if valid is None:  # resumed from checkpoint
-            vx, vy, mg = feats["vx"], feats["vy"], feats["mag"]
-        else:
-            with timing.span(timer, "flow.readback"):
-                n_clipped = int(torch.count_nonzero(clips[:n_pairs]))
-                if n_clipped:
-                    raise RuntimeError(
-                        f"flow chunk @{first}: {n_clipped} pairs clipped; the direct-sample "
-                        "warp never clips, so this is a fault")
-                vx = feats.vx[:n_pairs].cpu().numpy()
-                vy = feats.vy[:n_pairs].cpu().numpy()
-                mg = feats.mag[:n_pairs].cpu().numpy()
-                inv = ~valid[:n_pairs]
-                vx[inv] = np.nan
-                vy[inv] = np.nan
-                mg[inv] = np.nan
-            if store is not None:
-                with timing.span(timer, "flow.store"):
-                    store.save(first, vx=vx, vy=vy, mag=mg, t=t_chunk, skel=sk,
-                               ok=valid[:n_pairs])
-        feats_vx.append(vx)
-        feats_vy.append(vy)
-        feats_mag.append(mg)
+        first, t_chunk, sk, ok = key
+        if ok is not None and store is not None:  # computed, not resumed
+            with timing.span(timer, "flow.store"):
+                store.save(first, vx=vx, vy=vy, mag=mg, t=t_chunk, skel=sk, ok=ok)
+        feats.append((vx, vy, mg))
         rows_t.append(t_chunk)
-        pairs_done += n_pairs
+        pairs_done += len(vx)
         dt = time.perf_counter() - t_start
         logger.info(
             "flow chunk @%d: %d pairs done, %.1f pairs/s cumulative, "
@@ -220,6 +195,8 @@ def run_flow_stage(
             first, pairs_done, pairs_done / dt if dt > 0 else 0.0, 0, 0,
         )
 
+    driver = ChunkDriver(roi_body_flow_seq, config.flow, chunk_pairs, sink,
+                         lambda key: f"flow chunk @{key[0]}", timer=timer)
     chunks = iter(ChunkPrefetcher(src, chunk_pairs))
     while True:
         with timing.span(timer, "flow.decode_wait"):
@@ -232,19 +209,10 @@ def run_flow_stage(
         n_pairs = len(frames) - 1
         if n_pairs <= 0:
             continue
-        # One chunk shape: the tail chunk repeats its last frame (the
-        # padded pairs are dropped when the chunk is resolved).
-        if n_pairs < chunk_pairs:
-            reps = np.repeat(frames[-1:], chunk_pairs - n_pairs, axis=0)
-            frames = np.concatenate([frames, reps], axis=0)
         # Timestamps / axes of each pair's current frame: the container
         # timestamp when positive, else frame/fps (optical_flow.py:110-119).
-        idxs = np.minimum(first + 1 + np.arange(chunk_pairs), n_frames - 1)
-        pos_arr = np.array(
-            [p if p is not None else -1.0 for p in (pos + [None] * (chunk_pairs + 1 - len(pos)))],
-            dtype=np.float64,
-        )
-        cur = pos_arr[1 : chunk_pairs + 1]
+        idxs = first + 1 + np.arange(n_pairs)
+        cur = np.array([p if p is not None else -1.0 for p in pos[1:]], dtype=np.float64)
         t_chunk = np.where(cur > 0, cur / 1000.0, idxs / float(src.fps))
         sk = skel_indices(t_chunk, skeleton.time_all)
         ex = skeleton.ex[sk]
@@ -257,22 +225,10 @@ def run_flow_stage(
                            "recomputing it", first, len(cached["vx"]), n_pairs)
             cached = None
         if cached is not None:
-            pending.append((first, n_pairs, None, t_chunk[:n_pairs], sk[:n_pairs], cached, None))
+            driver.ready((first, t_chunk, sk, None), cached["vx"], cached["vy"], cached["mag"])
         else:
-            ex_safe = np.where(ok[:, None], ex, 0.0).astype(np.float32)
-            ey_safe = np.where(ok[:, None], ey, 0.0).astype(np.float32)
-            with timing.span(timer, "flow.copy"):
-                inputs = [torch.as_tensor(a).to(device) for a in (frames, ex_safe, ey_safe)]
-            with timing.span(timer, "flow.launch"):
-                feats, clips = roi_body_flow_seq(*inputs, masks_dev, config.flow)
-            del inputs  # the next chunk's copy may reuse their memory
-            valid = np.zeros(chunk_pairs, bool)
-            valid[:n_pairs] = ok[:n_pairs]
-            pending.append((first, n_pairs, valid, t_chunk[:n_pairs], sk[:n_pairs], feats, clips))
-        while len(pending) > _PIPELINE_DEPTH:
-            resolve(pending.pop(0))
-    for entry in pending:
-        resolve(entry)
+            driver.submit((first, t_chunk, sk, ok), frames, ex, ey, ok, n_pairs, masks_dev)
+    driver.finish()
 
     # Frame 0's row (no pair → NaN features), optical_flow.py:236-247.
     pos_all = np.array([p if p is not None else -1.0 for p in all_pos], dtype=np.float64)
@@ -282,15 +238,9 @@ def run_flow_stage(
     axes_ok = (np.isfinite(skeleton.ex[sk_all]).all(axis=1)
                & np.isfinite(skeleton.ey[sk_all]).all(axis=1))
     nanrow = np.full((1, n_roi), np.nan)
-    res = FlowStageResult(
-        frame=np.arange(n_frames),
-        t_sec=t_sec,
-        skel_idx=sk_all,
-        axes_ok=axes_ok,
-        vx=np.concatenate([nanrow] + feats_vx),
-        vy=np.concatenate([nanrow] + feats_vy),
-        mag=np.concatenate([nanrow] + feats_mag),
-    )
+    vx, vy, mag = (np.concatenate([nanrow] + [f[j] for f in feats]) for j in range(3))
+    res = FlowStageResult(frame=np.arange(n_frames), t_sec=t_sec, skel_idx=sk_all,
+                          axes_ok=axes_ok, vx=vx, vy=vy, mag=mag)
     if out_csv is not None:
         contracts.write_flow_csv(out_csv, res.frame, res.t_sec, res.skel_idx,
                                  res.axes_ok.astype(int), res.vx[:, 0], res.vy[:, 0],

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from btcs_pnes_optical_flow_tpu_torch.config import FarnebackParams, PCAParams
+from btcs_pnes_optical_flow_tpu_torch.models.chunks import ChunkDriver
 from btcs_pnes_optical_flow_tpu_torch.models.flow import (
     roi_body_flow,
     roi_body_flow_seq,
@@ -34,12 +35,8 @@ from btcs_pnes_optical_flow_tpu_torch.parallel.mesh import (
     cohort_sharding,
     replicated,
 )
-from btcs_pnes_optical_flow_tpu_torch.utils import timing
 from btcs_pnes_optical_flow_tpu_torch.utils.device import resolve_device
 
-# Chunks in flight per device before the oldest is read back (as
-# models/pipeline.py).
-_PIPELINE_DEPTH = 2
 # A cohort step's inputs: frames uint8, axes float32, masks and live flags
 # bool; the masks are replicated, the rest split on the video axis.
 _STEP_DTYPES = (torch.uint8, torch.uint8, torch.float32, torch.float32, torch.bool, torch.bool)
@@ -140,11 +137,10 @@ def cohort_flow_sharded(items, flows, config, chunk_pairs: int, mesh, timer=None
     rest per video.  Runs ``config.flow`` as given, without ROI dispatch,
     as the JAX package does; its ROI features equal the dispatched ones.
     Per-video semantics (NaN frame 0, invalid axes masked, one chunk shape
-    with the tail padded) are ``run_flow_stage``'s, and each video's
-    features do not depend on the mesh; a non-zero clip count raises, as
-    there.  A ``timer`` collects ``run_flow_stage``'s spans "flow.copy"
-    (a tail chunk's frame padding, a device concatenation, falls in it),
-    "flow.launch" and "flow.readback", once per video per chunk.
+    with the tail padded) are ``run_flow_stage``'s, through the same
+    ``models/chunks.py ChunkDriver``, and each video's features do not
+    depend on the mesh.  A ``timer`` collects the driver's spans, once per
+    video per chunk.
     """
     devs = as_mesh(mesh).axis_devices("data")
     n = len(items)
@@ -170,74 +166,38 @@ def cohort_flow_sharded(items, flows, config, chunk_pairs: int, mesh, timer=None
                              device=dev_of[i]) for i, it in enumerate(items)]
     n_roi = masks[0].shape[0]
     # Per-video timestamps and axes (array clips have no container
-    # timestamps: t = idx/fps, optical_flow.py:110-119).
-    t_sec, sk_all, ex_p, ey_p, ok_p = [], [], [], [], []
+    # timestamps: t = idx/fps, optical_flow.py:110-119); pair f - 1 takes
+    # frame f's axes, and frame 0 (no pair) NaN features.
+    t_sec, sk_all, axes = [], [], []
     for it in items:
         t = np.arange(t_frames, dtype=np.float64) / float(it.skeleton.fps)
         sk = skel_indices(t, it.skeleton.time_all)
-        ex = it.skeleton.ex[sk][1:]
-        ey = it.skeleton.ey[sk][1:]
-        ok = np.isfinite(ex).all(axis=1) & np.isfinite(ey).all(axis=1)
+        ex, ey = it.skeleton.ex[sk], it.skeleton.ey[sk]
         t_sec.append(t)
         sk_all.append(sk)
-        ex_p.append(np.where(ok[:, None], ex, 0.0).astype(np.float32))
-        ey_p.append(np.where(ok[:, None], ey, 0.0).astype(np.float32))
-        ok_p.append(ok)
+        axes.append((ex, ey, np.isfinite(ex).all(axis=1) & np.isfinite(ey).all(axis=1)))
+    feats_all = [[np.full((t_frames, n_roi), np.nan) for _ in range(3)] for _ in range(n)]
 
-    feats_all = [[np.empty((n_pairs_total, n_roi)) for _ in range(3)] for _ in range(n)]
-    pending = []
+    def sink(key, *feats):
+        i, s = key
+        for dst, vals in zip(feats_all[i], feats):
+            dst[1 + s : 1 + s + len(vals)] = vals
 
-    def resolve(entry):
-        i, s, b_eff, feats, clips = entry
-        with timing.span(timer, "flow.readback"):
-            n_clipped = int(torch.count_nonzero(clips[:b_eff]))
-            if n_clipped:
-                raise RuntimeError(f"cohort item {items[i].name} chunk @{s}: {n_clipped} pairs "
-                                   "clipped; the direct-sample warp never clips, so this is a "
-                                   "fault")
-            inv = ~ok_p[i][s : s + b_eff]
-            for dst, f in zip(feats_all[i], feats):
-                vals = f[:b_eff].cpu().numpy()
-                vals[inv] = np.nan
-                dst[s : s + b_eff] = vals
-
-    depth = _PIPELINE_DEPTH * len(devs)
+    driver = ChunkDriver(roi_body_flow_seq, config.flow, chunk_pairs, sink,
+                         lambda key: f"cohort item {items[key[0]].name} chunk @{key[1]}",
+                         devices=len(devs), timer=timer)
     for s in range(0, n_pairs_total, chunk_pairs):
         b_eff = min(chunk_pairs, n_pairs_total - s)
+        cur = slice(s + 1, s + 1 + b_eff)
         for i in order:
-            dev = dev_of[i]
-            ex_c = np.zeros((chunk_pairs, 2), np.float32)
-            ey_c = np.zeros_like(ex_c)
-            ex_c[:b_eff] = ex_p[i][s : s + b_eff]
-            ey_c[:b_eff] = ey_p[i][s : s + b_eff]
-            with timing.span(timer, "flow.copy"):
-                if tensors:
-                    fr = vids[i][s : s + chunk_pairs + 1].to(dev, torch.uint8)
-                else:
-                    fr = torch.as_tensor(np.asarray(vids[i][s : s + chunk_pairs + 1], np.uint8),
-                                         device=dev)
-                if b_eff < chunk_pairs:  # one chunk shape: repeat the last frame
-                    fr = torch.cat([fr, fr[-1:].expand(chunk_pairs - b_eff, h, w)])
-                axes = [torch.as_tensor(a, device=dev) for a in (ex_c, ey_c)]
-            with timing.span(timer, "flow.launch"):
-                feats, clips = roi_body_flow_seq(fr, *axes, masks[i], config.flow)
-            del axes  # freed after the launch, as the call's own arguments were
-            pending.append((i, s, b_eff, feats, clips))
-            while len(pending) > depth:
-                resolve(pending.pop(0))
-    for entry in pending:
-        resolve(entry)
+            ex, ey, ok = axes[i]
+            driver.submit((i, s), vids[i][s : s + b_eff + 1], ex[cur], ey[cur], ok[cur], b_eff,
+                          masks[i])
+    driver.finish()
 
-    nanrow = np.full((1, n_roi), np.nan)
-    for i, it in enumerate(items):
-        axes_ok = np.concatenate([[False], ok_p[i]])
-        # Frame 0's axes validity follows its own skeleton row (it has no
-        # pair, so its features are NaN regardless).
-        sk0 = sk_all[i][0]
-        axes_ok[0] = bool(np.isfinite(it.skeleton.ex[sk0]).all()
-                          and np.isfinite(it.skeleton.ey[sk0]).all())
-        vx, vy, mg = (np.concatenate([nanrow, f]) for f in feats_all[i])
+    for i in range(n):
+        vx, vy, mg = feats_all[i]
         flows[i] = FlowStageResult(frame=np.arange(t_frames), t_sec=t_sec[i], skel_idx=sk_all[i],
-                                   axes_ok=axes_ok, vx=vx, vy=vy, mag=mg)
+                                   axes_ok=axes[i][2], vx=vx, vy=vy, mag=mg)
         done[i] = True
     return done

@@ -2563,7 +2563,8 @@ def _hd_resume(base, cfg, device, ref, tmp):
     recording; a recording cut inside a chunk, resumed over the whole.
     Both equal 15d's features; K1 launches count the chunks recomputed."""
     from btcs_pnes_optical_flow_tpu_torch.dataio.checkpoint import ChunkStore
-    from btcs_pnes_optical_flow_tpu_torch.models.pipeline import _PIPELINE_DEPTH, run_flow_stage
+    from btcs_pnes_optical_flow_tpu_torch.models.chunks import _PIPELINE_DEPTH
+    from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_flow_stage
     from btcs_pnes_optical_flow_tpu_torch.ops import farneback_cuda as fc
 
     n = HD_FRAMES
