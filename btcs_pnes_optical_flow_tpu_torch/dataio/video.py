@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from btcs_pnes_optical_flow_tpu_torch.ops.cvx import bgr2gray_u8_np
+from btcs_pnes_optical_flow_tpu_torch.utils.device import pinned_empty, stages_pinned
 
 
 class VideoSource:
@@ -198,12 +199,17 @@ class ChunkPrefetcher:
     consecutive chunks overlap by one frame so every (i-1, i) pair is
     covered — the carry the reference keeps as ``prev_gray``
     (optical_flow.py:242-249).  The bounded queue buffers decode against
-    device compute.
+    device compute.  For a CUDA ``device`` (the chunks' destination) the
+    thread stacks each chunk's frames into a page-locked uint8 tensor
+    (``utils/device.py pinned_empty``) in place of the array, so that the
+    copy to the card needs no host sync.
     """
 
-    def __init__(self, source: VideoSource, chunk_pairs: int, depth: int = 2):
+    def __init__(self, source: VideoSource, chunk_pairs: int, depth: int = 2, *,
+                 device=None):
         self._source = source
         self._chunk = chunk_pairs
+        self._pin = device is not None and stages_pinned(device)
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
@@ -217,19 +223,26 @@ class ChunkPrefetcher:
                 buf.append(gray)
                 pos.append(pm)
                 if len(buf) == self._chunk + 1:
-                    self._q.put((first, np.stack(buf), list(pos)))
+                    self._q.put((first, self._stack(buf), list(pos)))
                     first += self._chunk
                     buf = buf[-1:]
                     pos = pos[-1:]
             if len(buf) > 1:
-                self._q.put((first, np.stack(buf), list(pos)))
+                self._q.put((first, self._stack(buf), list(pos)))
             elif len(buf) == 1 and first == 0:
                 # Single-frame video: emit the lone frame (no pairs).
-                self._q.put((0, np.stack(buf), list(pos)))
+                self._q.put((0, self._stack(buf), list(pos)))
         except Exception as e:  # surface decode errors to the consumer
             self._q.put(e)
         finally:
             self._q.put(None)
+
+    def _stack(self, buf):
+        if not self._pin:
+            return np.stack(buf)
+        frames = pinned_empty((len(buf),) + buf[0].shape, torch.uint8)
+        np.stack(buf, out=frames.numpy())
+        return frames
 
     def __iter__(self):
         while True:

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from btcs_pnes_optical_flow_tpu_torch.utils import timing
+from btcs_pnes_optical_flow_tpu_torch.utils.device import pinned_empty, stages_pinned
 
 _PIPELINE_DEPTH = 2
 
@@ -24,7 +25,13 @@ class ChunkDriver:
     R) host arrays, in submission order.  The port's warp never clips: a
     clip count raises RuntimeError, naming the chunk ``label(key)``.  A
     ``timer`` gets the spans "flow.copy" (frames, axes, a tail's padding),
-    "flow.launch" and "flow.readback" (clip count, reads, NaN mask)."""
+    "flow.launch" and "flow.readback" (clip count, reads, NaN mask).
+
+    A page-locked host tensor (``utils/device.py pinned_empty``: the
+    frames ``run_flow_stage``'s prefetcher stacks for a card, the axes this
+    driver stages for one) goes to the card as a copy queued on the stream,
+    without a host sync; a NumPy array or a pageable tensor goes as a
+    blocking copy."""
 
     def __init__(self, flow, params, chunk_pairs: int, sink, label, *, devices: int = 1,
                  timer=None):
@@ -40,6 +47,8 @@ class ChunkDriver:
         ok = np.asarray(ok[:n_pairs], bool)
         axes = np.zeros((2, self._chunk, 2), np.float32)
         axes[:, :n_pairs] = np.where(ok[:, None], [ex[:n_pairs], ey[:n_pairs]], 0.0)
+        if stages_pinned(masks.device):
+            axes = pinned_empty(axes.shape, torch.float32).copy_(torch.from_numpy(axes))
         self._push((key, n_pairs, ok, self._launch(frames, axes, masks)))
 
     def ready(self, key, vx, vy, mag):
@@ -53,13 +62,10 @@ class ChunkDriver:
     def _launch(self, frames, axes, masks):
         dev = masks.device  # the inputs are dropped on return, for the next copy
         with timing.span(self._timer, "flow.copy"):
-            if isinstance(frames, torch.Tensor):
-                fr = frames.to(dev, torch.uint8)  # a slice on ``dev`` stays a view
-            else:
-                fr = torch.as_tensor(np.asarray(frames, np.uint8), device=dev)
+            fr = _to(frames, dev, torch.uint8)  # a slice on ``dev`` stays a view
             if len(fr) <= self._chunk:  # one chunk shape: repeat the last frame
                 fr = torch.cat([fr, fr[-1:].expand(self._chunk + 1 - len(fr), *fr.shape[1:])])
-            ex, ey = (torch.as_tensor(a, device=dev) for a in axes)
+            ex, ey = _to(axes, dev, torch.float32)
         with timing.span(self._timer, "flow.launch"):
             return self._flow(fr, ex, ey, masks, self._params)
 
@@ -81,3 +87,11 @@ class ChunkDriver:
                 for v in out:
                     v[~ok] = np.nan
         self._sink(key, *out)
+
+
+def _to(a, dev, dtype):
+    """``a`` as ``dtype`` on ``dev``: from a page-locked host tensor by a copy
+    queued on the stream, with no host sync."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dev, dtype, non_blocking=a.is_pinned())
+    return torch.as_tensor(a, dtype=dtype, device=dev)

@@ -146,7 +146,9 @@ def run_flow_stage(
     it under other values raises ValueError.
 
     The chunks go through ``models/chunks.py ChunkDriver``: one chunk
-    shape, two chunks in flight, a raise on a non-zero clip count.  A
+    shape, two chunks in flight, a raise on a non-zero clip count.  On a
+    card the prefetch thread stacks each chunk's frames in page-locked
+    memory, so their copy to the card needs no host sync.  A
     ``timer`` collects the driver's host spans of each computed chunk,
     "flow.copy", "flow.launch" (its count is the chunks computed) and
     "flow.readback", and "flow.store" (the checkpoint write).
@@ -197,7 +199,7 @@ def run_flow_stage(
 
     driver = ChunkDriver(roi_body_flow_seq, config.flow, chunk_pairs, sink,
                          lambda key: f"flow chunk @{key[0]}", timer=timer)
-    chunks = iter(ChunkPrefetcher(src, chunk_pairs))
+    chunks = iter(ChunkPrefetcher(src, chunk_pairs, device=masks_dev.device))
     while True:
         with timing.span(timer, "flow.decode_wait"):
             chunk = next(chunks, None)

@@ -1,8 +1,10 @@
 """The flow stage's chunk driver (models/chunks.py ``ChunkDriver``) on the CPU:
 results in submission order with resumed chunks mixed in, at several
-depths; the clip-count fault raised from both of its callers; and a short
+depths; the clip-count fault raised from both of its callers; a short
 tail padded to the one chunk shape on the device, its padded pairs kept out
-of the result.  A one-level, one-iteration flow keeps the file cheap."""
+of the result; and the staging of a card's chunks in page-locked memory,
+decided by the device alone, which changes no result.  A one-level,
+one-iteration flow keeps the file cheap."""
 
 import numpy as np
 import pytest
@@ -10,10 +12,12 @@ import torch
 
 from btcs_pnes_optical_flow_tpu_torch.config import FarnebackParams, PipelineConfig
 from btcs_pnes_optical_flow_tpu_torch.dataio.contracts import Skeleton
+from btcs_pnes_optical_flow_tpu_torch.dataio import video
 from btcs_pnes_optical_flow_tpu_torch.dataio.video import ArraySource
 from btcs_pnes_optical_flow_tpu_torch.models import chunks, pipeline
 from btcs_pnes_optical_flow_tpu_torch.models.flow import FlowFeatures
 from btcs_pnes_optical_flow_tpu_torch.parallel import cohort
+from btcs_pnes_optical_flow_tpu_torch.utils import device
 from tests.test_pipeline import ROI, make_skeleton, render_clip
 from tests.test_torch_cohort import _clips, _items
 
@@ -164,3 +168,100 @@ def test_a_short_tail_is_padded_and_dropped(caller, resident, monkeypatch):
         assert len(b.vx) == n_frames and not (b.vx == 1e9).any()
         for name in FIELDS:
             assert np.array_equal(getattr(a, name), getattr(b, name), equal_nan=True), name
+
+
+# --- Page-locked staging of a chunk's frames and axes --------------------
+
+def _prefetched(n_frames, chunk, device, seed=5):
+    """What ``ChunkPrefetcher`` emits for ``n_frames`` random 6×7 frames with
+    timestamps, and those frames."""
+    frames = np.random.default_rng(seed).integers(0, 256, (n_frames, 6, 7), dtype=np.uint8)
+    pos = np.arange(n_frames) * 33.0
+    src = ArraySource(frames, fps=30.0, pos_msec=pos)
+    return list(video.ChunkPrefetcher(src, chunk, device=device)), frames, pos
+
+
+# 23 frames in 5-pair chunks: four full chunks and a tail of 2 pairs; 21: five
+# full chunks and no tail; 1: the lone frame, no pairs.
+PREFETCH_CASES = [(23, 5, [0, 5, 10, 15, 20]), (21, 5, [0, 5, 10, 15]), (1, 5, [0])]
+
+
+@pytest.mark.parametrize("n_frames,chunk,firsts", PREFETCH_CASES)
+@pytest.mark.parametrize("device", [None, "cpu", CPU], ids=["none", "cpu_str", "cpu"])
+def test_the_prefetcher_for_the_cpu_emits_arrays_and_pins_nothing(n_frames, chunk, firsts,
+                                                                   device, monkeypatch):
+    """For the CPU (or no device) each chunk is the NumPy stack of its
+    frames, overlapping the last by one frame, with their timestamps; no
+    page-locked tensor is asked for."""
+    def no_pinning(*a):
+        raise AssertionError("pinned memory asked for a CPU device")
+    monkeypatch.setattr(video, "pinned_empty", no_pinning)
+    got, frames, pos = _prefetched(n_frames, chunk, device)
+    assert [first for first, _, _ in got] == firsts
+    for first, fr, p in got:
+        last = min(first + chunk + 1, n_frames)
+        assert type(fr) is np.ndarray and fr.dtype == np.uint8
+        np.testing.assert_array_equal(fr, frames[first:last])
+        assert p == list(pos[first:last])
+
+
+def test_the_pinning_decision_depends_on_the_device_alone(monkeypatch):
+    """Only a CUDA device stages in page-locked memory, whatever its index or
+    spelling.  For one the prefetcher stacks each chunk into one such tensor
+    (here a pageable stand-in: this machine may have no card) holding the
+    bytes the CPU's arrays hold."""
+    for dev in ("cuda", "cuda:1", torch.device("cuda", 0)):
+        assert device.stages_pinned(dev)
+    for dev in ("cpu", CPU, "meta"):
+        assert not device.stages_pinned(dev)
+    asked = []
+
+    def pageable(shape, dtype):
+        asked.append((shape, dtype))
+        return torch.empty(shape, dtype=dtype)
+    monkeypatch.setattr(video, "pinned_empty", pageable)
+    for n_frames, chunk, firsts in PREFETCH_CASES:
+        asked.clear()
+        staged, _, _ = _prefetched(n_frames, chunk, "cuda")
+        arrays, _, _ = _prefetched(n_frames, chunk, CPU)
+        assert [(len(fr), 6, 7) for _, fr, _ in arrays] == [s for s, _ in asked]
+        assert {d for _, d in asked} == {torch.uint8}
+        for (f1, t, p1), (f2, a, p2) in zip(staged, arrays, strict=True):
+            assert isinstance(t, torch.Tensor) and (f1, p1) == (f2, p2)
+            np.testing.assert_array_equal(t.numpy(), a)
+
+
+@pytest.mark.parametrize("chunk_form", ["numpy", "tensor", "staged"])
+def test_a_tensor_chunk_gives_what_a_numpy_chunk_gives(chunk_form, monkeypatch):
+    """``ChunkDriver`` through ``run_flow_stage`` (40 frames, 16-pair chunks
+    with a 7-pair tail): chunks handed over as CPU tensors, or staged the way
+    a card's are (the frames stacked into a tensor by the prefetcher, the
+    axes into one by the driver, both pageable stand-ins here), give the
+    features of chunks handed over as NumPy arrays, bit for bit."""
+    want = _run_pipeline()[0]
+    if chunk_form == "tensor":
+        real = video.ChunkPrefetcher
+
+        class TensorChunks(real):
+            def __iter__(self):
+                for first, frames, pos in real.__iter__(self):
+                    yield first, torch.from_numpy(frames), pos
+        monkeypatch.setattr(pipeline, "ChunkPrefetcher", TensorChunks)
+    elif chunk_form == "staged":
+        for module in (video, chunks):
+            monkeypatch.setattr(module, "stages_pinned", lambda dev: True)
+            monkeypatch.setattr(module, "pinned_empty",
+                                lambda shape, dtype: torch.empty(shape, dtype=dtype))
+    seen = []
+    real_launch = chunks.ChunkDriver._launch
+
+    def launch(self, frames, axes, masks):
+        seen.append((type(frames), type(axes)))
+        return real_launch(self, frames, axes, masks)
+    monkeypatch.setattr(chunks.ChunkDriver, "_launch", launch)
+    got = _run_pipeline()[0]
+    kinds = {"numpy": (np.ndarray, np.ndarray), "tensor": (torch.Tensor, np.ndarray),
+             "staged": (torch.Tensor, torch.Tensor)}[chunk_form]
+    assert seen == [kinds] * 3
+    for name in FIELDS:
+        assert np.array_equal(getattr(got, name), getattr(want, name), equal_nan=True), name

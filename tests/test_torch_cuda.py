@@ -1273,3 +1273,148 @@ def test_run_full_tvl1_matches_the_plain_reference_at_1080p(card):
     # reciprocals: ulps a step, through the data term's thresholds, the
     # epsilon stop's exit by an iteration, averaged over the ROI.
     assert np.abs(got - ref).max() <= 1e-4
+
+
+# --- The flow stage's chunk copy from page-locked memory -----------------
+
+def _hd_recording(card, n=361):
+    """A 1080p recording of n frames under the benchmark's rec1080 flow
+    settings: (source, skeleton, config)."""
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    from benchmark.lib import calls, render
+    from benchmark.lib.spec import Spec
+
+    base = render.render_pool({"frames": 33, "blobs": [{"x_frac": 0.5, "hz": 3.0}]}, 1, 1080,
+                              1920, 30.0, 2**31 + 41, card)[0]
+    return (calls.played_source(base, "pingpong", n, 30.0), calls.skeleton(n, 30.0, 0.3),
+            calls.pipeline_config(Spec().config("rec1080")))
+
+
+def _pageable_chunks(monkeypatch):
+    """Make ``run_flow_stage``'s prefetcher emit NumPy chunks, as for the CPU."""
+    from btcs_pnes_optical_flow_tpu_torch.dataio import video
+    from btcs_pnes_optical_flow_tpu_torch.models import pipeline
+
+    class Pageable(video.ChunkPrefetcher):
+        def __init__(self, source, chunk_pairs, depth=2, *, device=None):
+            super().__init__(source, chunk_pairs, depth)
+    monkeypatch.setattr(pipeline, "ChunkPrefetcher", Pageable)
+
+
+def test_run_full_gives_the_same_bits_from_pinned_and_pageable_chunks(card, monkeypatch):
+    """run_full on 361 1080p frames in 64-pair chunks (a 40-pair tail):
+    frames staged in page-locked memory and copied without a sync, and the
+    same chunks handed over as NumPy arrays (pageable, blocking copies),
+    give equal features, PC1 and metric rows."""
+    from btcs_pnes_optical_flow_tpu_torch.models import chunks
+    from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_full
+
+    seen = []
+    real = chunks.ChunkDriver._launch
+
+    def launch(self, frames, axes, masks):
+        seen.append(isinstance(frames, torch.Tensor) and frames.is_pinned()
+                    and axes.is_pinned())
+        return real(self, frames, axes, masks)
+    monkeypatch.setattr(chunks.ChunkDriver, "_launch", launch)
+
+    def run():
+        src, skel, cfg = _hd_recording(card)
+        return run_full(src, skel, [np.asarray(HD_ROI)], cfg, 64, device=card)
+
+    pinned = run()
+    assert seen == [True] * 6
+    seen.clear()
+    _pageable_chunks(monkeypatch)
+    pageable = run()
+    assert seen == [False] * 6
+    for c in ("vx", "vy", "mag"):
+        a, b = getattr(pinned[0], c), getattr(pageable[0], c)
+        assert np.isfinite(a[1:]).all() and np.array_equal(a, b, equal_nan=True), c
+    assert np.isfinite(pinned[1]).any() and np.array_equal(pinned[1], pageable[1],
+                                                           equal_nan=True)
+    for ra, rb in zip(pinned[2], pageable[2], strict=True):
+        for f in ra._fields:
+            assert np.array_equal(getattr(ra, f).cpu().numpy(), getattr(rb, f).cpu().numpy(),
+                                  equal_nan=True), f
+
+
+def test_pinned_chunk_buffers_are_not_reused_while_a_copy_lags(card):
+    """200 chunks of 2 pairs of distinct 96x128 frames, staged in page-locked
+    memory by the prefetch thread, through ChunkDriver with a sync-free flow
+    that queues ~1 ms of device sleep first, so that each copy waits on the
+    stream behind the chunk before it while the thread stacks later chunks
+    into new blocks: every chunk's features equal those of the same chunk
+    copied and computed alone, with a sync after each."""
+    from btcs_pnes_optical_flow_tpu_torch.dataio.video import ArraySource, ChunkPrefetcher
+    from btcs_pnes_optical_flow_tpu_torch.models.chunks import ChunkDriver
+    from btcs_pnes_optical_flow_tpu_torch.models.flow import FlowFeatures
+
+    n, chunk = 401, 2
+    rng = np.random.default_rng(23)
+    frames = rng.integers(0, 256, (n, 96, 128), dtype=np.uint8)
+    ex = rng.random((n, 2)).astype(np.float32)
+    ey = rng.random((n, 2)).astype(np.float32)
+    masks = torch.ones((2, 96, 128), dtype=torch.bool, device=card)
+
+    def flow(fr, ex_d, ey_d, m, params, sleep=True):
+        if sleep:
+            torch.cuda._sleep(2_000_000)
+        f = fr.to(torch.float64)
+        cols = lambda v: v[:, None].expand(-1, m.shape[0])  # noqa: E731
+        return (FlowFeatures(cols((f[1:] - f[:-1]).sum((1, 2)) + ex_d[:, 0]),
+                             cols((f[1:] * f[:-1]).sum((1, 2)) + ey_d[:, 1]),
+                             cols(f[1:].sum((1, 2)))),
+                torch.zeros(len(fr) - 1, dtype=torch.int32, device=fr.device))
+
+    got = {}
+    driver = ChunkDriver(flow, None, chunk, lambda k, *f: got.__setitem__(k, f), str)
+    pinned = 0
+    for first, fr, _ in ChunkPrefetcher(ArraySource(frames, 30.0), chunk, device=card):
+        pinned += fr.is_pinned()
+        cur = slice(first + 1, first + 1 + chunk)
+        driver.submit(first, fr, ex[cur], ey[cur], np.ones(chunk, bool), chunk, masks)
+    driver.finish()
+    assert pinned == len(got) == (n - 1) // chunk
+
+    for first, feats in got.items():
+        cur = slice(first + 1, first + 1 + chunk)
+        want, _ = flow(torch.as_tensor(frames[first:first + chunk + 1], device=card),
+                       torch.as_tensor(ex[cur], device=card),
+                       torch.as_tensor(ey[cur], device=card), masks, None, sleep=False)
+        torch.cuda.synchronize(card)
+        for g, w in zip(feats, want, strict=True):
+            assert np.array_equal(g, w.cpu().numpy()), first
+
+
+def test_the_chunk_copy_is_pinned_and_waits_on_no_sync(card):
+    """A profiled run_flow_stage on 361 1080p frames (five 64-pair chunks
+    and a 40-pair tail): the "flow.copy" ranges hold no
+    cudaStreamSynchronize, and each chunk's frames and axes go as two
+    host-to-device copies the profiler names "Pinned", the longest copy of
+    the call among them."""
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    from benchmark.lib import trace
+
+    from btcs_pnes_optical_flow_tpu_torch.models.pipeline import run_flow_stage
+    from btcs_pnes_optical_flow_tpu_torch.utils.timing import StageTimer
+
+    src, skel, cfg = _hd_recording(card)
+    out = {}
+    with trace.profiled(out):
+        run_flow_stage(src, skel, [np.asarray(HD_ROI)], cfg, 64, device=card,
+                       timer=StageTimer(card))
+    tr = out["trace"]
+    copies = [(s, e) for s, e, n in tr.host if n == "flow.copy"]
+    assert len(copies) == 6
+    syncs = [s for s, _, n in tr.host if n == "cudaStreamSynchronize"]
+    assert syncs and not [s for s in syncs if any(a <= s < b for a, b in copies)]
+    htod = sorted(((e - s, n) for s, e, n in tr.dev if "Memcpy HtoD" in n), reverse=True)
+    assert sum("Pinned" in n for _, n in htod) == 2 * 6
+    assert "Pinned" in htod[0][1]
